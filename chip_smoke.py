@@ -2,12 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA partial-min kernel from vectordb_tpu_torch/csrc, holds it
-against its plain PyTorch version at the flat-serve shape (B = 8192 queries,
-N = 262,144 rows, D = 128, bf16), then drives the flat-serve slice through
-the library API: a 250,000 x 128 clustered table, single queries through
-vdb.query and 16,384 queries through Table.grouped_dense_search, checked
-against an exact numpy oracle. Exits non-zero on any failure and when no
+Builds both CUDA kernels from vectordb_tpu_torch/csrc (one nvcc each, in
+parallel) and holds each against its plain PyTorch version on the card:
+the partial-min scan at the flat-serve shape (B = 8192 queries, N = 262,144
+rows, D = 128, bf16) and at the exact-KNN shape (B = 1,024, N = 1,048,576,
+exclude_self, n_valid); the row gather, bit for bit, at the traversal's
+shapes (bf16 store rows, int8 fused rows, int32 adjacency rows). Then it
+drives two paths through the library API, each with the launch counts set
+to 0 just before and read just after:
+  - flat-serve: a 250,000 x 128 clustered table, single queries through
+    vdb.query, 16,384 queries through Table.grouped_dense_search;
+  - graph: a 1,000,000 x 128 clustered table, vdb.rebuild() (exact KNN on
+    the partial-min kernel, pruning, auto-tune), single queries through
+    vdb.query, and 16,384 grouped queries with FusedTraversal auto and off
+    (traversal gathers through the row-gather kernel).
+Results are checked against exact oracles (recall@10 >= 0.99, distances
+equal to an f32 recomputation). Exits non-zero on any failure and when no
 CUDA device is present; the last line is a JSON object with "ok": true.
 """
 from __future__ import annotations
@@ -25,11 +35,19 @@ import torch
 
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build
-from vectordb_tpu_torch.ops import partial_min
+from vectordb_tpu_torch.ops import gather, partial_min
 from vectordb_tpu_torch.schema import MetricType
 
 KERNEL_B, KERNEL_N, KERNEL_D = 8192, 262144, 128
+KNN_B, KNN_N, KNN_N_VALID, KNN_Q_BASE = 1024, 1_048_576, 1_000_000, 4096
 SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH = 250_000, 128, 16_384, 2048
+GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH = 1_000_000, 128, 16_384, 2048
+# Row-gather shapes of the 1M-row traversal: (name, dtype, row shape,
+# number of ids). 196,608 ids = 2,048 queries x a compacted 96 candidates.
+GATHER_N = 1_048_576
+GATHER_CASES = (("bf16_store", torch.bfloat16, (128,), 196_608),
+                ("int8_fused", torch.int8, (48 * 128,), 8_192),
+                ("int32_adjacency", torch.int32, (48,), 8_192))
 RECALL_FLOOR = 0.99
 # Both sides add exact bf16 x bf16 products in f32, in different orders:
 # an order changes a sum of D terms by at most about D * 2^-24 of the sum of
@@ -42,8 +60,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn() over `reps` runs after one warm-up."""
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median device time of fn() over `reps` samples after one warm-up;
+    a sample times `inner` back-to-back calls and divides, so a kernel
+    shorter than its launch is timed from a full queue (for such a kernel
+    the figure is still bounded below by the host's launch rate)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -51,10 +72,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -102,52 +124,111 @@ def kernel_cases(dev: torch.device, b: int, n: int, d: int):
     return cases
 
 
+def compare_scan(dev: torch.device, name: str, kw):
+    """partial_min_scan (the kernel) against partial_min_scan_ref on the
+    same inputs; returns (max abs error, kernel ms, plain ms)."""
+    vk, ik = partial_min.partial_min_scan(**kw)
+    vp, ip = partial_min.partial_min_scan_ref(**kw)
+    torch.cuda.synchronize()
+    scale = float(kw["q_norms"].max() + kw["norms"].max())
+    atol = VAL_ATOL_SCALE * scale
+    if vk.shape != vp.shape or ik.shape != ip.shape:
+        raise AssertionError(f"{name}: shapes {vk.shape} vs {vp.shape}")
+    if not torch.allclose(vk, vp, rtol=VAL_RTOL, atol=atol):
+        bad = ~torch.isclose(vk, vp, rtol=VAL_RTOL, atol=atol)
+        raise AssertionError(f"{name}: {int(bad.sum())} values differ "
+                             f"beyond rtol {VAL_RTOL} atol {atol:.3g}")
+    fin = torch.isfinite(vp)
+    err = float((vk[fin] - vp[fin]).abs().max()) if fin.any() else 0.0
+    # Ids may differ only where the group's two candidates tie within
+    # the tolerance (the sums' order decides which one wins).
+    diff = ik != ip
+    near = (vk - vp).abs() <= atol + VAL_RTOL * vp.abs()
+    if bool((diff & ~near).any()):
+        raise AssertionError(f"{name}: ids differ away from near-ties")
+    live = ik[torch.isfinite(vk)]
+    if kw["exclude_self"]:
+        b = kw["queries"].shape[0]
+        rows_self = kw["q_base"] + torch.arange(b, device=dev,
+                                                dtype=torch.int32)
+        if bool((ik == rows_self[:, None]).any()):
+            raise AssertionError(f"{name}: exclude_self kept a query's row")
+    if kw["mask"] is not None:
+        excluded = (kw["mask"] == 0).nonzero().flatten()
+        if bool(torch.isin(live, excluded.to(torch.int32)).any()):
+            raise AssertionError(f"{name}: masked rows survived")
+    if bool((live >= kw["n_valid"]).any()):
+        raise AssertionError(f"{name}: rows past n_valid survived")
+    ms = cuda_ms(lambda: partial_min.partial_min_scan(**kw))
+    plain_ms = cuda_ms(lambda: partial_min.partial_min_scan_ref(**kw))
+    log(f"kernel partial_min {name}: " + json.dumps({
+        "case": name, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+        "atol": atol, "id_mismatch": int(diff.sum())}))
+    return err, ms, plain_ms
+
+
 def check_kernel(dev: torch.device, b: int, n: int, d: int):
-    """Kernel vs plain version per case; returns (the max abs error over
-    all cases, (kernel ms, plain ms) of the masked L2 case — the one
-    flat-serve runs)."""
-    max_err, main_times = 0.0, None
+    """Kernel vs plain version per flat-serve case; returns (the max abs
+    error over all cases, {case: (kernel ms, plain ms)})."""
+    max_err, times = 0.0, {}
     for name, kw in kernel_cases(dev, b, n, d):
-        vk, ik = partial_min.partial_min_scan(**kw)
-        vp, ip = partial_min.partial_min_scan_ref(**kw)
-        torch.cuda.synchronize()
-        scale = float(kw["q_norms"].max() + kw["norms"].max())
-        atol = VAL_ATOL_SCALE * scale
-        if vk.shape != vp.shape or ik.shape != ip.shape:
-            raise AssertionError(f"{name}: shapes {vk.shape} vs {vp.shape}")
-        if not torch.allclose(vk, vp, rtol=VAL_RTOL, atol=atol):
-            bad = ~torch.isclose(vk, vp, rtol=VAL_RTOL, atol=atol)
-            raise AssertionError(f"{name}: {int(bad.sum())} values differ "
-                                 f"beyond rtol {VAL_RTOL} atol {atol:.3g}")
-        fin = torch.isfinite(vp)
-        err = float((vk[fin] - vp[fin]).abs().max()) if fin.any() else 0.0
-        # Ids may differ only where the group's two candidates tie within
-        # the tolerance (the sums' order decides which one wins).
-        diff = ik != ip
-        near = (vk - vp).abs() <= atol + VAL_RTOL * vp.abs()
-        if bool((diff & ~near).any()):
-            raise AssertionError(f"{name}: ids differ away from near-ties")
-        if name == "l2_exclude_self":
-            rows_self = 4096 + torch.arange(b, device=dev, dtype=torch.int32)
-            if bool((ik == rows_self[:, None]).any()):
-                raise AssertionError("exclude_self kept a query's own row")
-        if name == "l2_mask_nvalid":
-            excluded = (kw["mask"] == 0).nonzero().flatten()
-            gone = torch.isin(ik[torch.isfinite(vk)],
-                              excluded.to(torch.int32)).any()
-            if bool(gone) or bool((ik[torch.isfinite(vk)]
-                                   >= kw["n_valid"]).any()):
-                raise AssertionError("masked or out-of-range rows survived")
-        ms = cuda_ms(lambda: partial_min.partial_min_scan(**kw))
-        plain_ms = cuda_ms(lambda: partial_min.partial_min_scan_ref(**kw))
-        log(f"kernel {name}: " + json.dumps({
-            "case": name, "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "atol": atol,
-            "id_mismatch": int(diff.sum())}))
+        err, ms, plain_ms = compare_scan(dev, name, kw)
         max_err = max(max_err, err)
-        if name == "l2_mask_nvalid":
-            main_times = (ms, plain_ms)
-    return max_err, main_times
+        times[name] = (ms, plain_ms)
+    return max_err, times
+
+
+def check_knn_kernel(dev: torch.device):
+    """The scan at one exact-KNN block: KNN_B table rows as queries against
+    the whole KNN_N-row bf16 table, exclude_self, n_valid = KNN_N_VALID."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    tab = torch.randn((KNN_N, 128), generator=g,
+                      device=dev).to(torch.bfloat16)
+    norms = (tab.float() ** 2).sum(1)
+    q = slice(KNN_Q_BASE, KNN_Q_BASE + KNN_B)
+    kw = {"queries": tab[q], "q_norms": norms[q], "q_base": KNN_Q_BASE,
+          "table": tab, "norms": norms,
+          "metric": int(MetricType.EUCLIDEAN), "n_valid": KNN_N_VALID,
+          "exclude_self": True, "mask": None}
+    out = compare_scan(dev, "knn_block", kw)
+    del tab, norms, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_gather(dev: torch.device):
+    """gather_rows (the kernel) against gather_rows_ref, bit for bit, at the
+    traversal's shapes; ids include -1 and ids past the end (clamped).
+    Returns {case: {ms, plain_ms, max_abs_err, ...}}."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for name, dtype, row, n_ids in GATHER_CASES:
+        shape = (GATHER_N,) + row
+        if dtype.is_floating_point:
+            tab = torch.randn(shape, generator=g, device=dev).to(dtype)
+        else:
+            tab = torch.randint(-100, 100, shape, generator=g, device=dev,
+                                dtype=dtype)
+        ids = torch.randint(-2, GATHER_N + 2, (n_ids,), generator=g,
+                            device=dev, dtype=torch.int32)
+        k = gather.gather_rows(tab, ids)
+        p = gather.gather_rows_ref(tab, ids)
+        torch.cuda.synchronize()
+        if k.shape != p.shape or not torch.equal(k.view(torch.uint8),
+                                                 p.view(torch.uint8)):
+            raise AssertionError(f"gather {name}: kernel differs from the "
+                                 "plain version")
+        err = float((k.double() - p.double()).abs().max())
+        ms = cuda_ms(lambda: gather.gather_rows(tab, ids), inner=50)
+        plain_ms = cuda_ms(lambda: gather.gather_rows_ref(tab, ids),
+                           inner=50)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                     "table": list(shape), "dtype": str(dtype),
+                     "ids": n_ids, "row_bytes": k[0].numel() * k.element_size()}
+        log(f"kernel gather_rows {name}: " + json.dumps(out[name]))
+        del tab, ids, k, p
+        torch.cuda.empty_cache()
+    return out
 
 
 def oracle_top10(x: np.ndarray, q: np.ndarray, k: int = 10) -> np.ndarray:
@@ -217,12 +298,14 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         partial_min.reset_launches()
+        gather.reset_launches()
         t0 = time.perf_counter()
         ids, dists = table.grouped_dense_search(
             "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = partial_min.launches
+        gather_launches = gather.launches
         peak = torch.cuda.max_memory_allocated(dev)
         if launches <= 0:
             raise AssertionError("grouped search never launched the kernel")
@@ -241,8 +324,146 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         vdb.unload_db("smoke")
     return {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
             "group": 4, "recall_at_10": recall, "qps": n_q / wall,
-            "wall_s": wall, "launches": launches, "peak_bytes": peak,
+            "wall_s": wall, "launches": launches,
+            "gather_launches": gather_launches, "peak_bytes": peak,
             "ingest_s": ingest_s}
+
+
+def oracle_top10_gpu(x_dev: torch.Tensor, x: np.ndarray, q: np.ndarray,
+                     k: int = 10) -> np.ndarray:
+    """Exact top-k by a plain f32 matmul shortlist of 64 on the card (TF32
+    off), then an f64 re-rank on the host."""
+    xn = (x_dev * x_dev).sum(1)
+    out = np.empty((q.shape[0], k), dtype=np.int64)
+    for s in range(0, q.shape[0], 256):
+        qc = q[s:s + 256]
+        d = xn[None, :] - 2.0 * (torch.from_numpy(qc).to(x_dev.device)
+                                 @ x_dev.T)
+        cand = torch.topk(d, 64, dim=1, largest=False)[1].cpu().numpy()
+        exact = ((x[cand].astype(np.float64) - qc[:, None, :]) ** 2).sum(2)
+        order = np.argsort(exact, axis=1, kind="stable")[:, :k]
+        out[s:s + 256] = np.take_along_axis(cand, order, axis=1)
+    return out
+
+
+def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
+    """The graph path through the library API: ingest, vdb.rebuild() (the
+    partial-min kernel builds the KNN graph), single queries through
+    vdb.query, grouped queries with FusedTraversal auto and off (the row
+    gather kernel serves traversal). Returns its numbers."""
+    x, queries = make_clustered(n, dim, n_q, seed=0)
+    out = {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
+           "group": 4}
+    with tempfile.TemporaryDirectory() as tmp:
+        assert vdb.load_db("graph", os.path.join(tmp, "graph"),
+                           vector_scale=n) == 0
+        vdb.use_db("graph")
+        vdb.create_table("docs", [
+            {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+             "metricType": "EUCLIDEAN"}])
+        t0 = time.perf_counter()
+        code, res = vdb.insert_columns("docs", {"ID": np.arange(n),
+                                                "Emb": x})
+        out["ingest_s"] = time.perf_counter() - t0
+        if code != 0 or res["inserted"] != n:
+            raise AssertionError(f"insert_columns: {code} {res}")
+        assert vdb.update_config({"QueryGroupSize": 4,
+                                  "FusedTraversal": "auto"}) == 0
+        table = vdb._db.databases["graph"].tables["docs"]
+
+        # Build: the counts at 0 just before rebuild(), read just after.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        partial_min.reset_launches()
+        gather.reset_launches()
+        t0 = time.perf_counter()
+        code = vdb.rebuild()
+        torch.cuda.synchronize()
+        out["rebuild_s"] = time.perf_counter() - t0
+        out["build_partial_min_launches"] = partial_min.launches
+        out["build_gather_launches"] = gather.launches
+        out["rebuild_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        graph = table.graphs["Emb"]
+        if code != 0 or graph is None or graph.num_rows != n:
+            raise AssertionError(f"rebuild: code {code}, graph {graph}")
+        if partial_min.launches <= 0:
+            raise AssertionError("the build never launched partial-min")
+        out["build_phase_s"] = graph.build_seconds
+        out["tuned"] = {k: table._tuned_report["Emb"][k]
+                        for k in ("ef", "iters", "recall", "id_recall",
+                                  "ood_recall")}
+        out["tune_rungs"] = len(table._tuned_report["Emb"]["tried"])
+        log(f"graph build phases (s): {json.dumps(graph.build_seconds)}")
+        log(f"graph auto-tune: {json.dumps(out['tuned'])}")
+
+        # Single queries through the public API (fused auto).
+        x_dev = torch.from_numpy(x).to(dev)
+        probe = [42, 7, n // 2, n - 1]
+        want = oracle_top10_gpu(x_dev, x, x[probe])
+        for i, row in enumerate(probe):
+            code, hits = vdb.query("docs", "Emb", x[row].tolist(), ["ID"],
+                                   10, "", True)
+            got = [h["ID"] for h in hits]
+            if code != 0 or got[0] != row or \
+                    len(set(got) & set(want[i].tolist())) < 9:
+                raise AssertionError(f"query X[{row}]: {got} vs "
+                                     f"{want[i].tolist()}")
+        lat = []
+        for i in range(220):
+            t0 = time.perf_counter()
+            vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10, "",
+                      True)
+            lat.append(time.perf_counter() - t0)
+        lat = np.asarray(lat[20:]) * 1e3
+        out["single_ms"] = {"p50": float(np.percentile(lat, 50)),
+                            "p90": float(np.percentile(lat, 90)),
+                            "p99": float(np.percentile(lat, 99))}
+        log(f"graph single queries (ms): {json.dumps(out['single_ms'])}")
+
+        # Grouped queries, fused and split traversal.
+        n_rec = min(2048, n_q)
+        want = oracle_top10_gpu(x_dev, x, queries[:n_rec])
+        del x_dev
+        torch.cuda.empty_cache()
+        valid = table.segment.valid_mask()
+        out["grouped"] = {}
+        for mode in ("auto", "off"):
+            assert vdb.update_config({"FusedTraversal": mode}) == 0
+            table.grouped_dense_search("Emb", queries[:batch * 4 + 1], valid,
+                                       MetricType.EUCLIDEAN, 10, batch=batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            partial_min.reset_launches()
+            gather.reset_launches()
+            t0 = time.perf_counter()
+            ids, dists = table.grouped_dense_search(
+                "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = {"qps": n_q / wall, "wall_s": wall,
+                 "gather_launches": gather.launches,
+                 "partial_min_launches": partial_min.launches,
+                 "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+            if r["gather_launches"] <= 0:
+                raise AssertionError(f"traversal ({mode}) never launched "
+                                     "the gather kernel")
+            if ids.shape != (n_q, 10) or not np.isfinite(dists).all():
+                raise AssertionError(f"grouped result shape {ids.shape}")
+            r["recall_at_10"] = float(np.mean(
+                [len(set(a) & set(b)) / 10.0
+                 for a, b in zip(ids[:n_rec], want)]))
+            if r["recall_at_10"] < RECALL_FLOOR:
+                raise AssertionError(f"graph recall@10 ({mode}) "
+                                     f"{r['recall_at_10']} < {RECALL_FLOOR}")
+            exact = ((x[ids] - queries[:, None, :]) ** 2).sum(2)
+            if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"graph distances ({mode}) differ from "
+                                     "f32 recomputation")
+            out["grouped"][mode] = r
+            log(f"graph grouped FusedTraversal={mode}: {json.dumps(r)}")
+        vdb.unload_db("graph")
+    return out
 
 
 def main() -> int:
@@ -258,22 +479,39 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = _cuda_build.library_path("partial_min", ["partial_min.cu"])
-    log(f"build: {time.perf_counter() - t0:.2f} s -> {lib}")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("ptxas: " + line.strip())
+    libs = _cuda_build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s -> {json.dumps(libs)}")
+    for lib in libs.values():
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("ptxas: " + line.strip())
 
-    max_err, (k_ms, p_ms) = check_kernel(dev, KERNEL_B, KERNEL_N, KERNEL_D)
+    pm_err, pm_times = check_kernel(dev, KERNEL_B, KERNEL_N, KERNEL_D)
+    knn_err, knn_ms, knn_plain_ms = check_knn_kernel(dev)
+    gather_cases = check_gather(dev)
     sl = run_slice(dev, SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH)
     log(f"slice: {json.dumps(sl)}")
-    print(json.dumps({"kernels": [{
-        "name": "partial_min", "route": "cuda",
-        "source": "vectordb_tpu_torch/csrc/partial_min.cu",
-        "replaces": "vectordb_tpu/ops/pallas_topk.py:45",
-        "launches": sl["launches"], "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+    gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
+    log(f"graph: {json.dumps(gr)}")
+    main_pm = pm_times["l2_mask_nvalid"]
+    trav = gather_cases["bf16_store"]
+    print(json.dumps({"kernels": [
+        {"name": "partial_min", "route": "cuda",
+         "source": "vectordb_tpu_torch/csrc/partial_min.cu",
+         "replaces": "vectordb_tpu/ops/pallas_topk.py:45",
+         "launches": sl["launches"] + gr["build_partial_min_launches"],
+         "max_abs_err": max(pm_err, knn_err),
+         "ms": main_pm[0], "plain_ms": main_pm[1],
+         "knn_block_ms": knn_ms, "knn_block_plain_ms": knn_plain_ms},
+        {"name": "gather_rows", "route": "cuda",
+         "source": "vectordb_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "benchmarks/gather_micro.py:30",
+         "launches": sum(r["gather_launches"]
+                         for r in gr["grouped"].values()),
+         "max_abs_err": max(c["max_abs_err"] for c in gather_cases.values()),
+         "ms": trav["ms"], "plain_ms": trav["plain_ms"],
+         "cases": gather_cases}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,14 @@
-"""The port on a CUDA device: the partial-min kernel against its plain
-version, and the flat-serve slice through the kernel.
+"""The port on a CUDA device: the partial-min and row-gather kernels
+against their plain versions, and the flat-serve and graph slices through
+the kernels.
 
 These tests need the card and skip without one. They import neither jax
 nor vectordb_tpu, so they also run where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 Tolerance (kernel vs plain version): both add exact bf16 x bf16 products
 in f32 in different orders — rtol 1e-5, atol 1e-5 * max(|q|^2 + |x|^2),
-and ids equal except at such near-ties.
+and ids equal except at such near-ties. The row gather copies bytes, so it
+must equal its plain version bit for bit.
 """
 import numpy as np
 import pytest
@@ -14,7 +16,7 @@ import torch
 
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch.config import global_config
-from vectordb_tpu_torch.ops import flat, partial_min
+from vectordb_tpu_torch.ops import flat, gather, partial_min
 from vectordb_tpu_torch.schema import MetricType
 
 METRICS = [MetricType.EUCLIDEAN, MetricType.COSINE, MetricType.DOT_PRODUCT]
@@ -167,3 +169,84 @@ def test_grouped_search_goes_through_kernel(cuda_device, tmp_path):
         want = np.argsort(np.where(alive, dd, np.inf))[:10]
         assert set(ids[i].tolist()) == set(want.tolist())
         np.testing.assert_allclose(d[i], dd[ids[i]], rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,row", [
+    (torch.bfloat16, (128,)), (torch.int32, (48,)), (torch.int32, (64,)),
+    (torch.int8, (48 * 128,)), (torch.float32, (128,)), (torch.float32, ()),
+    (torch.int32, (3,))])
+def test_gather_kernel_is_bit_exact(cuda_device, dtype, row):
+    """Every row width the traversal uses, the 4-byte scalars and a row of
+    12 bytes (the 4-byte-word path); ids include -1 and ids past the end,
+    which clamp."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n = 5000
+    if dtype.is_floating_point:
+        tab = torch.randn((n,) + row, generator=g,
+                          device=cuda_device).to(dtype)
+    else:
+        tab = torch.randint(-100, 100, (n,) + row, generator=g,
+                            device=cuda_device).to(dtype)
+    ids = torch.randint(-3, n + 3, (37, 29), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    before = gather.launches
+    out = gather.gather_rows(tab, ids)
+    ref = gather.gather_rows_ref(tab, ids)
+    torch.cuda.synchronize()
+    assert gather.launches == before + 1
+    assert out.shape == ids.shape + tab.shape[1:]
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(ref, tab[ids.clamp(0, n - 1).long()])
+
+
+@pytest.mark.gpu
+def test_gather_kernel_rejects_what_it_does_not_take(cuda_device):
+    tab = torch.zeros((10, 8), device=cuda_device)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gather.gather_rows(tab, ids.long())
+    with pytest.raises(ValueError):
+        gather.gather_rows(tab[:, ::2], ids)
+    with pytest.raises(ValueError):  # 3-byte rows
+        gather.gather_rows(tab[:, :3].bool().contiguous(), ids)
+    with pytest.raises(ValueError):
+        gather.gather_rows(tab, ids.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_graph_slice_goes_through_both_kernels(cuda_device, tmp_path, fused):
+    """rebuild() on the card launches the partial-min kernel (exact KNN),
+    traversal launches the gather kernel; recall and exact distances."""
+    n, dim = 30000, 128
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(300, dim)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 300, n)]
+         + rng.normal(size=(n, dim)).astype(np.float32))
+    assert vdb.load_db("g", str(tmp_path / "g"), vector_scale=n) == 0
+    vdb.use_db("g")
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+         "metricType": "EUCLIDEAN"}])
+    vdb.insert_columns("t", {"ID": np.arange(n), "Emb": x})
+    assert vdb.update_config({"FlatServe": "off",
+                              "FusedTraversal": fused}) == 0
+    partial_min.reset_launches()
+    assert vdb.rebuild() == 0
+    assert partial_min.launches > 0
+    table = vdb._db.databases["g"].tables["t"]
+    queries = x[rng.integers(0, n, 1000)] + 0.1 * rng.normal(
+        size=(1000, dim)).astype(np.float32)
+    gather.reset_launches()
+    ids, d = table.grouped_dense_search(
+        "Emb", queries, table.segment.valid_mask(), MetricType.EUCLIDEAN,
+        10, batch=256)
+    assert gather.launches > 0
+    hits = 0
+    for i in range(0, 1000, 10):
+        dd = ((x - queries[i]) ** 2).sum(1)
+        hits += len(set(ids[i].tolist()) & set(np.argsort(dd)[:10].tolist()))
+        np.testing.assert_allclose(d[i], dd[ids[i]], rtol=1e-5)
+    assert hits / 1000 >= 0.99

@@ -1,10 +1,14 @@
 """The dense query slice end to end: vectordb_tpu and vectordb_tpu_torch
 on the same table through the library API, both held to a numpy oracle.
 
-Results must match as id sets per query, with distances within rtol 1e-5
-(both packages return exact f32 re-ranked distances; only summation order
-differs). Also: the port never imports jax, and it opens data directories
-that vectordb_tpu wrote (WAL only, and after dump_db).
+Flat path: results must match as id sets per query, with distances within
+rtol 1e-5 (both packages return exact f32 re-ranked distances; only
+summation order differs). Graph path (after rebuild()): each package builds
+its own graph, so top-10 id sets must agree on at least 99% of queries,
+distances of the ids both return within rtol 1e-5, and the port's recall
+against the oracle may be at most 0.005 below the JAX package's. Also: the
+port never imports jax, and it opens data directories that vectordb_tpu
+wrote (WAL only, and after dump_db).
 """
 import subprocess
 import sys
@@ -14,10 +18,13 @@ import pytest
 
 import vectordb_tpu as jvdb
 import vectordb_tpu_torch as tvdb
+from vectordb_tpu.table import Table as JaxTable
 from vectordb_tpu.config import global_config as jax_config
 from vectordb_tpu.schema import MetricType
 from vectordb_tpu_torch.config import global_config as torch_config
 from vectordb_tpu_torch.errors import NOT_IMPLEMENTED_ERROR
+from vectordb_tpu_torch.ops import beam as tbeam
+from vectordb_tpu_torch.table import Table as TorchTable
 
 METRICS = ["EUCLIDEAN", "COSINE", "DOT_PRODUCT"]
 
@@ -150,16 +157,24 @@ def test_delete_then_query_matches_jax(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path):
-    _load(tvdb, tmp_path / "t", "t", 100, 8, "EUCLIDEAN", seed=0)
+    """Hybrid search, the reduced-precision query wires, the sharded plane
+    and the IVF KNN build (IvfKnnThreshold rows and up) are not ported:
+    they raise or return NOT_IMPLEMENTED_ERROR."""
+    n = 10_000
+    _load(tvdb, tmp_path / "t", "t", n, 8, "EUCLIDEAN", seed=0)
+    assert tvdb.update_config({"IvfKnnThreshold": n}) == 0
+    t = tvdb._db.databases["db"].tables["t"]
     assert tvdb.rebuild() == NOT_IMPLEMENTED_ERROR
+    assert t.graphs["Emb"] is None
     with pytest.raises(Exception, match="not ported"):
         tvdb.hybrid_query("t", [{"field": "Emb", "vector": [0.0] * 8}])
+    for wire in ("bf16", "int8"):
+        assert tvdb.update_config({"QueryDtype": wire}) == 0
+        with pytest.raises(Exception, match="not ported"):
+            t._query_wire("Emb")
+    assert tvdb.update_config({"ShardCount": 2}) == 0
     with pytest.raises(Exception, match="not ported"):
-        tvdb.tune_search("t", "Emb")
-    assert tvdb.update_config({"QueryDtype": "bf16"}) == 0
-    t = tvdb._db.databases["db"].tables["t"]
-    with pytest.raises(Exception, match="not ported"):
-        t._query_wire("Emb")
+        tvdb.create_table("s", _fields(8, "EUCLIDEAN"))
 
 
 def test_import_leaves_jax_out():
@@ -216,3 +231,203 @@ def test_insert_records_get_and_drop_match_jax(tmp_path):
             == 7)
     assert tvdb.drop_table("t") == jvdb.drop_table("t") == 0
     assert tvdb.statistics()[1] == jvdb.statistics()[1]
+
+
+# ---------------------------------------------------------------------------
+# Graph path: rebuild(), then single, batched and grouped queries.
+# ---------------------------------------------------------------------------
+
+
+def _clustered_columns(n, dim, seed, metric):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(30, dim)) * 3
+    x = (centers[rng.integers(0, 30, n)]
+         + rng.normal(size=(n, dim))).astype(np.float32)
+    if metric == "COSINE":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x, {"ID": np.arange(n), "Doc": [f"c{i % 7}" for i in range(n)],
+               "Emb": x}
+
+
+def _build_both(tmp_path, n, dim, metric, seed, cfg=None):
+    x, cols = _clustered_columns(n, dim, seed, metric)
+    tables = []
+    for pkg, sub in ((jvdb, "j"), (tvdb, "t")):
+        assert pkg.load_db("db", str(tmp_path / sub), vector_scale=2 * n) == 0
+        pkg.use_db("db")
+        pkg.create_table("t", _fields(dim, metric))
+        pkg.insert_columns("t", cols)
+        if cfg:
+            assert pkg.update_config(cfg) == 0
+        assert pkg.rebuild() == 0
+        t = pkg._db.databases["db"].tables["t"]
+        assert t.graphs["Emb"] is not None and t.graphs["Emb"].num_rows == n
+        tables.append(t)
+    return x, tables[0], tables[1]
+
+
+def _oracle_ids(x, q, metric, k, keep=None):
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    if metric == "COSINE":
+        q64 = q64 / np.linalg.norm(q64, axis=1, keepdims=True)
+    ip = q64 @ x64.T
+    if metric == "EUCLIDEAN":
+        d = (q64 ** 2).sum(1)[:, None] - 2 * ip + (x64 ** 2).sum(1)[None]
+    else:
+        d = (1.0 - ip) if metric == "COSINE" else -ip
+    if keep is not None:
+        d[:, ~keep] = np.inf
+    return np.argsort(d, axis=1, kind="stable")[:, :k]
+
+
+def _assert_graph_results_agree(tid, td, jid, jd, want):
+    agree = np.mean([set(a[a >= 0]) == set(b[b >= 0])
+                     for a, b in zip(tid, jid)])
+    assert agree >= 0.99, agree
+    for a_i, a_d, b_i, b_d in zip(tid, td, jid, jd):
+        both = np.intersect1d(a_i[a_i >= 0], b_i[b_i >= 0])
+        sa, sb = np.isin(a_i, both), np.isin(b_i, both)
+        np.testing.assert_allclose(a_d[sa][np.argsort(a_i[sa])],
+                                   b_d[sb][np.argsort(b_i[sb])],
+                                   rtol=1e-5, atol=1e-5)
+
+    def recall(ids):
+        return np.mean([len(set(a) & set(b)) / len(b)
+                        for a, b in zip(ids, want)])
+
+    assert recall(tid) >= recall(jid) - 0.005
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_graph_queries_match_jax(tmp_path, metric):
+    n, dim = 6000, 32
+    x, jt, tt = _build_both(tmp_path, n, dim, metric, seed=21)
+    rng = np.random.default_rng(22)
+    queries = (x[rng.integers(0, n, 200)]
+               + 0.05 * rng.normal(size=(200, dim))).astype(np.float32)
+    if metric == "COSINE":
+        queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    m = MetricType[metric]
+    jid, jd = jt.batch_dense_search("Emb", queries, jt.segment.valid_mask(),
+                                    m, 10, mask_cacheable=True)
+    tid, td = tt.batch_dense_search("Emb", queries, tt.segment.valid_mask(),
+                                    m, 10, mask_cacheable=True)
+    _assert_graph_results_agree(tid, td, jid, jd,
+                                _oracle_ids(x, queries, metric, 10))
+    # Single queries through the API; for L2 also with a host-folded
+    # filter (1 row in 7: the beam widens 16-fold by the selectivity).
+    cases = [("", None, 8)]
+    if metric == "EUCLIDEAN":
+        cases.append(("Doc = 'c3'", np.arange(n) % 7 == 3, 1))
+    for flt, kp, nq in cases:
+        res = [[_rows(pkg.query("t", "Emb", q.tolist(), ["ID"], 10, flt,
+                                True)[1]) for q in queries[:nq]]
+               for pkg in (tvdb, jvdb)]
+        (tid1, td1), (jid1, jd1) = (
+            (np.array([r[0] for r in rs]), np.array([r[1] for r in rs]))
+            for rs in res)
+        _assert_graph_results_agree(
+            tid1, td1, jid1, jd1, _oracle_ids(x, queries[:nq], metric, 10,
+                                              kp))
+        if kp is not None:
+            assert kp[tid1].all()
+
+
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_grouped_graph_matches_jax(tmp_path, monkeypatch, fused):
+    n, dim, nq = 6000, 32, 600
+    cfg = {"FlatServe": "off", "FusedTraversal": fused}
+    x, jt, tt = _build_both(tmp_path, n, dim, "EUCLIDEAN", seed=23, cfg=cfg)
+    calls = []
+    orig = tbeam.beam_search_grouped
+    monkeypatch.setattr(tbeam, "beam_search_grouped",
+                        lambda *a, **k: calls.append(k["fused"]) or orig(
+                            *a, **k))
+    rng = np.random.default_rng(24)
+    queries = (x[rng.integers(0, n, nq)]
+               + 0.05 * rng.normal(size=(nq, dim))).astype(np.float32)
+    out = [t.grouped_dense_search("Emb", queries, t.segment.valid_mask(),
+                                  MetricType.EUCLIDEAN, 10, batch=128,
+                                  mask_cacheable=True) for t in (jt, tt)]
+    (jid, jd), (tid, td) = out
+    assert calls and all((f is not None) == (fused == "auto") for f in calls)
+    assert tid.shape == jid.shape == (nq, 10)
+    _assert_graph_results_agree(tid, td, jid, jd,
+                                _oracle_ids(x, queries, "EUCLIDEAN", 10))
+
+
+def test_graph_delete_full_k_and_tail_match_jax(tmp_path, monkeypatch):
+    """Deleted rows never come back; when the beam surfaces fewer than k
+    filtered rows, the exact masked scan tops the result up to k; rows
+    inserted after the build come from the flat tail."""
+    n, dim = 6000, 32
+    x, jt, tt = _build_both(tmp_path, n, dim, "EUCLIDEAN", seed=25)
+    doomed = list(range(0, n, 11))
+    for pkg in (jvdb, tvdb):
+        assert pkg.delete_by_pk("t", doomed) == 0
+    alive = np.ones(n, bool)
+    alive[doomed] = False
+    # A narrow beam without selectivity widening: the filtered walk finds
+    # fewer than k matches and the top-up completes them, exactly.
+    for cls in (JaxTable, TorchTable):
+        monkeypatch.setattr(cls, "_sel_boost", classmethod(lambda c, a, m: 1))
+    for pkg in (jvdb, tvdb):
+        assert pkg.update_config({"SearchEf": 16}) == 0
+    scans = []
+    orig = TorchTable._flat_candidates
+    monkeypatch.setattr(
+        TorchTable, "_flat_candidates",
+        lambda self, *a, **k: scans.append(k.get("row_start", 0))
+        or orig(self, *a, **k))
+    keep = alive & (np.arange(n) % 7 == 3)
+    for q in x[1:4]:
+        jid, jd = _rows(jvdb.query("t", "Emb", q.tolist(), ["ID"], 10,
+                                   "Doc = 'c3'", True)[1])
+        tid, td = _rows(tvdb.query("t", "Emb", q.tolist(), ["ID"], 10,
+                                   "Doc = 'c3'", True)[1])
+        assert len(tid) == 10
+        assert set(tid) == set(jid) == set(
+            _oracle_ids(x, q[None], "EUCLIDEAN", 10, keep)[0].tolist())
+        np.testing.assert_allclose(sorted(td), sorted(jd), rtol=1e-5)
+    assert scans and set(scans) == {0}  # the top-up ran, on the graph path
+    # Rows inserted after the build: the flat tail finds them.
+    rng = np.random.default_rng(26)
+    extra = (x[rng.integers(0, n, 300)]
+             + 0.01 * rng.normal(size=(300, dim))).astype(np.float32)
+    cols = {"ID": np.arange(n, n + 300),
+            "Doc": [f"c{i % 7}" for i in range(n, n + 300)], "Emb": extra}
+    for pkg in (jvdb, tvdb):
+        pkg.insert_columns("t", cols)
+        assert pkg.update_config({"SearchEf": 64}) == 0
+    x_all = np.concatenate([x, extra])
+    alive = np.concatenate([alive, np.ones(300, bool)])
+    res = [[_rows(pkg.query("t", "Emb", q.tolist(), ["ID"], 10, "",
+                            True)[1]) for q in extra[:8]]
+           for pkg in (tvdb, jvdb)]
+    (tid, td), (jid, jd) = ((np.array([r[0] for r in rs]),
+                             np.array([r[1] for r in rs])) for rs in res)
+    assert (tid >= n).any() and alive[tid].all()
+    assert n in scans  # the tail scan starts at the graph's row count
+    _assert_graph_results_agree(
+        tid, td, jid, jd, _oracle_ids(x_all, extra[:8], "EUCLIDEAN", 10,
+                                      alive))
+
+
+def test_tune_search_matches_jax_and_sidecar_loads_in_jax(tmp_path):
+    n, dim = 6000, 32
+    _, jt, tt = _build_both(tmp_path, n, dim, "EUCLIDEAN", seed=27)
+    jcode, jrep = jvdb.tune_search("t", "Emb")
+    tcode, trep = tvdb.tune_search("t", "Emb")
+    assert tcode == jcode == 0
+    assert (trep["Emb"]["ef"], trep["Emb"]["iters"]) == (
+        jrep["Emb"]["ef"], jrep["Emb"]["iters"])
+    assert trep["Emb"]["recall"] >= 0.99
+    assert abs(trep["Emb"]["recall"] - jrep["Emb"]["recall"]) <= 0.005
+    assert tt.search_ef_override["Emb"] == trep["Emb"]["ef"]
+    tvdb.unload_db("db")
+    jvdb.unload_db("db")
+    assert jvdb.load_db("db2", str(tmp_path / "t"), vector_scale=2 * n) == 0
+    j2 = jvdb._db.databases["db2"].tables["t"]
+    assert j2.graphs["Emb"] is not None
+    assert j2.search_ef_override["Emb"] == trep["Emb"]["ef"]
+    assert j2.search_iters_override.get("Emb", 0) == trep["Emb"]["iters"]

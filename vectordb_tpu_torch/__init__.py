@@ -2,10 +2,13 @@
 
 The PyTorch/CUDA port of vectordb_tpu: the same data model (databases ->
 tables -> fields), filter language, facets, WAL + snapshot persistence and
-function API, with the dense query path running on an NVIDIA GPU. The
-flat-serve scan is a hand-written CUDA kernel (csrc/partial_min.cu). Parts
-of the TPU package not ported yet (graph index, sharding, sparse/hybrid
-search, REST server) raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
+function API, with the dense query path running on an NVIDIA GPU: the
+flat-serve scan and the graph index (exact-KNN build, beam traversal,
+search tuning). Its two hand-written CUDA kernels are the partial-min scan
+(csrc/partial_min.cu) and the row gather of traversal (csrc/gather_rows.cu).
+Parts of the TPU package not ported yet (sharding, sparse/hybrid search,
+the IVF KNN build, REST server) raise NOT_IMPLEMENTED_ERROR; see
+ROADMAP.md.
 
 A data directory written by either package opens in the other.
 
@@ -132,8 +135,9 @@ def hybrid_query(table_name: str, queries: List[Dict[str, Any]],
 def tune_search(table_name: str, field_name: str = "",
                 target_recall: float = 0.99, sample: int = 256,
                 k: int = 10) -> Tuple[int, Dict[str, Any]]:
-    """Search tuning belongs to the graph index, which is not ported:
-    raises with NOT_IMPLEMENTED_ERROR's message."""
+    """Auto-tune per-field SearchEf (beam width) and traversal depth to a
+    recall target; the tuned values persist with the table and override
+    the global config."""
     status, report = _engine().tune_search(
         _db_name, table_name, field_name, target_recall, sample, k)
     if not status.ok():
@@ -176,7 +180,9 @@ def statistics(db_name: Optional[str] = None) -> Tuple[int, Dict[str, Any]]:
 
 
 def rebuild() -> int:
-    """Graph builds are not ported: returns NOT_IMPLEMENTED_ERROR."""
+    """Build the graph index of every dense field whose row count changed
+    (tables below MinimalGraphSize rows stay flat). Returns 0, or
+    NOT_IMPLEMENTED_ERROR for a table at IvfKnnThreshold rows or more."""
     return _engine().rebuild().code
 
 

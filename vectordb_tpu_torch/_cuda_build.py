@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -21,6 +22,12 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Library name -> its sources under csrc/.
+KERNELS: Dict[str, List[str]] = {
+    "partial_min": ["partial_min.cu"],
+    "gather_rows": ["gather_rows.cu"],
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,10 +68,21 @@ def library_path(name: str, sources: List[str]) -> str:
     return lib
 
 
-def load(name: str, sources: List[str]) -> ctypes.CDLL:
-    """ctypes handle of the library `name`, built on first use."""
+def build_all() -> Dict[str, str]:
+    """Build every library of KERNELS (one nvcc per library, all started
+    together) and return name -> path."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        futs = {name: pool.submit(library_path, name, srcs)
+                for name, srcs in KERNELS.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """ctypes handle of the library `name` of KERNELS, built on first
+    use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(library_path(name, sources))
+            lib = _loaded[name] = ctypes.CDLL(
+                library_path(name, KERNELS[name]))
         return lib

@@ -5,11 +5,16 @@ Mirrors the semantics of the reference's global `Config` of validated atomics
 `update_config`, and it reports whether running query state must be swapped.
 
 The keys are those of vectordb_tpu.config, so one update_config payload works
-for both engines. This package reads the ones its slice uses — MasterQueueSize,
-PreFilter, WalTextFormat, ShardCount (>= 2 is refused), QueryBatchWindowMs,
-DeviceRerank, DeviceRerankMaxBytes, QueryGroupSize, QueryDtype, FlatServe and
-FlatServeMaxRows; the others steer graph, sharded and tuning paths that are
-not ported yet and are accepted and kept only.
+for both engines. This package reads the ones its slices use: the flat path
+(MasterQueueSize, PreFilter, WalTextFormat, ShardCount (>= 2 is refused),
+QueryBatchWindowMs, DeviceRerank, DeviceRerankMaxBytes, QueryGroupSize,
+QueryDtype, FlatServe, FlatServeMaxRows) and the graph index
+(MinimalGraphSize, SearchEf, BruteForceThreshold, GraphKnnK, GraphDegree,
+GraphAlpha, Beam*, IvfKnnThreshold, WarmupBuckets, BuildSearch*,
+FusedTraversal, FusedMaxBytes, AutoTuneSearch, AutoTuneTargetRecall). The
+others, DeviceHbmBytes among them (the port asks the card for its free
+memory), steer paths that are not ported yet and are accepted and kept
+only.
 """
 from __future__ import annotations
 

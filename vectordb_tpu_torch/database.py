@@ -52,6 +52,16 @@ class Database:
                 shutil.rmtree(path, ignore_errors=True)
         return Status.OK()
 
+    def rebuild(self) -> Status:
+        """Rebuild every table's graphs; returns the first failing status
+        (after trying every table), else OK."""
+        first = Status.OK()
+        for table in list(self.tables.values()):
+            status = table.rebuild()
+            if not status.ok() and first.ok():
+                first = status
+        return first
+
     def dump(self, path: str) -> Status:
         for table in list(self.tables.values()):
             status = table.dump(path)

@@ -3,8 +3,8 @@ counterpart of vectordb_tpu/db_server.py).
 
 Owns the catalog and the name -> Database registry. Its entry points mirror
 the reference facade for the ported slice: LoadDB/UnloadDB/DumpDB/
-CreateTable/DropTable/Insert/Delete/Search/Project/GetStatistics. Rebuild,
-hybrid search and search tuning answer NOT_IMPLEMENTED_ERROR; the rebuild
+CreateTable/DropTable/Insert/Delete/Search/Project/GetStatistics/Rebuild
+and search tuning. Hybrid search answers NOT_IMPLEMENTED_ERROR; the rebuild
 thread, leader/follower switching and the embedding service are not ported.
 """
 from __future__ import annotations
@@ -26,7 +26,6 @@ from .facets import preprocess_facets
 from .ops.sparse import SparseVector
 from .schema import (DENSE_VECTOR_TYPES, INT_TYPES, FieldType,
                      parse_table_schema_from_user_json)
-from .table import _not_ported
 
 class DBServer:
     def __init__(self):
@@ -302,7 +301,8 @@ class DBServer:
                     field_name: str = "", target_recall: float = 0.99,
                     sample: int = 256, k: int = 10
                     ) -> Tuple[Status, Dict[str, Any]]:
-        """Auto-tune per-field SearchEf (graph index; not ported)."""
+        """Auto-tune per-field (SearchEf, iterations) of graph-indexed
+        fields to a recall target."""
         try:
             table = self._get_table(db_name, table_name)
             report = table.tune_search_ef(field_name or None,
@@ -336,8 +336,18 @@ class DBServer:
     # ------------------------------------------------------------------
 
     def rebuild(self) -> Status:
-        """Graph builds are not ported yet: NOT_IMPLEMENTED_ERROR."""
-        return _not_ported("Rebuild (graph index build)").status
+        """Rebuild the graphs of every loaded database (on the device
+        executor); returns the first failing status, else OK. The periodic
+        rebuild thread of the JAX package is not ported."""
+        first = Status.OK()
+        for name in list(self.databases.keys()):
+            db = self.databases.get(name)
+            if db is None:
+                continue
+            status = self.device_executor.run(db.rebuild)
+            if not status.ok() and first.ok():
+                first = status
+        return first
 
     def set_wal_enabled(self, db_name: str, enabled: bool) -> Status:
         db = self.get_db(db_name)

@@ -195,7 +195,7 @@ def _launch(queries, q_norms, q_base, table, norms, metric, n_valid,
     gcols = n // (tile_c // 128)
     vals = torch.empty((b, 2 * gcols), dtype=torch.float32, device=dev)
     ids = torch.empty((b, 2 * gcols), dtype=torch.int32, device=dev)
-    lib = _cuda_build.load("partial_min", ["partial_min.cu"])
+    lib = _cuda_build.load("partial_min")
     fn = lib.vdb_partial_min
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
