@@ -8,33 +8,53 @@ the partial-min scan at the flat-serve shape (B = 8192 queries, N = 262,144
 rows, D = 128, bf16) and at the exact-KNN shape (B = 1,024, N = 1,048,576,
 exclude_self, n_valid); the row gather, bit for bit, at the traversal's
 shapes (bf16 store rows, int8 fused rows, int32 adjacency rows). Then it
-drives two paths through the library API, each with the launch counts set
-to 0 just before and read just after:
+drives the port's paths, each with the launch counts set to 0 just before
+and read just after:
   - flat-serve: a 250,000 x 128 clustered table, single queries through
-    vdb.query, 16,384 queries through Table.grouped_dense_search;
-  - graph: a 1,000,000 x 128 clustered table, vdb.rebuild() (exact KNN on
-    the partial-min kernel, pruning, auto-tune), single queries through
-    vdb.query, and 16,384 grouped queries with FusedTraversal auto and off
-    (traversal gathers through the row-gather kernel).
-Results are checked against exact oracles (recall@10 >= 0.99, distances
-equal to an f32 recomputation). Exits non-zero on any failure and when no
-CUDA device is present; the last line is a JSON object with "ok": true.
+    vdb.query, 16,384 queries through Table.grouped_dense_search, then the
+    same with a device filter keeping half the rows (partial-min kernel
+    with the device mask);
+  - graph: a 1,000,000 x 128 clustered table with attributes `cat` (INT,
+    0-9) and `price` (DOUBLE, [0, 100)), vdb.rebuild() (exact KNN on the
+    partial-min kernel, pruning, auto-tune), single queries through
+    vdb.query, 16,384 grouped queries with FusedTraversal auto and off and
+    with the device filter `cat < 5` (traversal gathers through the
+    row-gather kernel);
+  - REST in-process over that database: 2,048 single queries from 16
+    client threads over four filters (none, `cat < 5`, `price > 80.0`,
+    `price < 5.0`), an insert of 2,048 rows served from the flat tail,
+    and POST /api/rebuild;
+  - the CLI as users start it: `python -m vectordb_tpu_torch` in a child
+    process loads a dump of the database, answers queries and statistics,
+    and exits 0 on SIGINT.
+Results are checked against exact (masked) oracles: recall@10 >= 0.99
+(0.95 for the widened-beam filters), every returned row passes its filter,
+distances equal an f32 recomputation. Exits non-zero on any failure and
+when no CUDA device is present; the last line is a JSON object with
+"ok": true.
 """
 from __future__ import annotations
 
+import http.client
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+
+from typing import Tuple
 
 import numpy as np
 import torch
 
 import vectordb_tpu_torch as vdb
-from vectordb_tpu_torch import _cuda_build
+from vectordb_tpu_torch import _cuda_build, rest
+from vectordb_tpu_torch.expr.parser import parse_expr
 from vectordb_tpu_torch.ops import gather, partial_min
 from vectordb_tpu_torch.schema import MetricType
 
@@ -49,6 +69,17 @@ GATHER_CASES = (("bf16_store", torch.bfloat16, (128,), 196_608),
                 ("int8_fused", torch.int8, (48 * 128,), 8_192),
                 ("int32_adjacency", torch.int32, (48,), 8_192))
 RECALL_FLOOR = 0.99
+# Filtered queries that the graph serves with a widened beam (the JAX
+# package's selectivity rule, not retuned) are held to this floor.
+WIDENED_RECALL_FLOOR = 0.95
+# REST phase: requests, client threads, filters (name -> (filter string,
+# row predicate over the cat / price columns)), rows inserted over HTTP.
+REST_QUERIES, REST_CLIENTS, REST_INSERT = 2048, 16, 2048
+REST_FILTERS = (("none", "", None),
+                ("cat<5", "cat < 5", lambda c, p: c < 5),
+                ("price>80", "price > 80.0", lambda c, p: p > 80.0),
+                ("price<5", "price < 5.0", lambda c, p: p < 5.0))
+CLI_BOOT_S = 120
 # Both sides add exact bf16 x bf16 products in f32, in different orders:
 # an order changes a sum of D terms by at most about D * 2^-24 of the sum of
 # magnitudes, which |q|^2 + |x|^2 bounds. Values must agree within
@@ -321,12 +352,73 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
             raise AssertionError("grouped distances differ from f32 "
                                  "recomputation")
+
+        # The same pass with a device filter keeping half the rows: the
+        # partial-min kernel reads the composed device mask.
+        half = n // 2
+        keep = np.arange(n) < half
+        filtered = grouped_filtered(
+            table, f"ID < {half}", queries, valid, batch, x, keep,
+            oracle_top10(x[:half], queries[:min(1024, n_q)]), RECALL_FLOOR)
+        if filtered["partial_min_launches"] <= 0:
+            raise AssertionError("filtered flat-serve never launched "
+                                 "partial-min")
+        log(f"slice filtered grouped: {json.dumps(filtered)}")
         vdb.unload_db("smoke")
     return {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
             "group": 4, "recall_at_10": recall, "qps": n_q / wall,
             "wall_s": wall, "launches": launches,
             "gather_launches": gather_launches, "peak_bytes": peak,
-            "ingest_s": ingest_s}
+            "ingest_s": ingest_s, "filtered": filtered}
+
+
+def device_filter(table, flt: str):
+    """Table._device_filter for a filter string (the library path)."""
+    ctx = table._device_filter(parse_expr(flt, table.field_type_map),
+                               table._compile_filter(flt))
+    if ctx is None:
+        raise AssertionError(f"{flt!r} did not compile to a device filter")
+    return ctx
+
+
+def grouped_filtered(table, flt: str, queries, valid, batch: int,
+                     x: np.ndarray, keep: np.ndarray, want: np.ndarray,
+                     floor: float):
+    """grouped_dense_search with the device filter `flt`, launch counts at
+    0 just before and read just after (after one warm-up call); every row
+    must pass `keep`, recall@10 against `want` (the masked oracle of the
+    first len(want) queries) reach `floor`, distances be exact."""
+    ctx = device_filter(table, flt)
+    table.grouped_dense_search("Emb", queries[:batch * 4 + 1], valid,
+                               MetricType.EUCLIDEAN, 10, batch=batch,
+                               mask_cacheable=True, filter_ctx=ctx)
+    torch.cuda.synchronize()
+    partial_min.reset_launches()
+    gather.reset_launches()
+    t0 = time.perf_counter()
+    ids, dists = table.grouped_dense_search(
+        "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch,
+        mask_cacheable=True, filter_ctx=ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"filter": flt, "selectivity": float(keep.mean()),
+           "qps": queries.shape[0] / wall, "wall_s": wall,
+           "partial_min_launches": partial_min.launches,
+           "gather_launches": gather.launches}
+    if ids.shape != (queries.shape[0], 10) or not np.isfinite(dists).all():
+        raise AssertionError(f"{flt}: result shape {ids.shape}")
+    if not keep[ids].all():
+        raise AssertionError(f"{flt}: a returned row fails the filter")
+    out["recall_at_10"] = float(np.mean(
+        [len(set(a) & set(b)) / 10.0 for a, b in zip(ids, want)]))
+    if out["recall_at_10"] < floor:
+        raise AssertionError(f"{flt}: recall@10 {out['recall_at_10']} < "
+                             f"{floor}")
+    exact = ((x[ids] - queries[:, None, :]) ** 2).sum(2)
+    if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"{flt}: distances differ from f32 "
+                             "recomputation")
+    return out
 
 
 def oracle_top10_gpu(x_dev: torch.Tensor, x: np.ndarray, q: np.ndarray,
@@ -349,21 +441,29 @@ def oracle_top10_gpu(x_dev: torch.Tensor, x: np.ndarray, q: np.ndarray,
 def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
     """The graph path through the library API: ingest, vdb.rebuild() (the
     partial-min kernel builds the KNN graph), single queries through
-    vdb.query, grouped queries with FusedTraversal auto and off (the row
-    gather kernel serves traversal). Returns its numbers."""
+    vdb.query, grouped queries with FusedTraversal auto and off and with a
+    device filter (the row gather kernel serves traversal); then the REST
+    server in-process and the CLI over the same database. Returns its
+    numbers."""
     x, queries = make_clustered(n, dim, n_q, seed=0)
+    rng = np.random.default_rng(1)
+    cat = rng.integers(0, 10, n)
+    price = rng.uniform(0.0, 100.0, n)
     out = {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
            "group": 4}
     with tempfile.TemporaryDirectory() as tmp:
         assert vdb.load_db("graph", os.path.join(tmp, "graph"),
-                           vector_scale=n) == 0
+                           vector_scale=n + 2 * REST_INSERT) == 0
         vdb.use_db("graph")
         vdb.create_table("docs", [
             {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "cat", "dataType": "INT"},
+            {"name": "price", "dataType": "DOUBLE"},
             {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
              "metricType": "EUCLIDEAN"}])
         t0 = time.perf_counter()
         code, res = vdb.insert_columns("docs", {"ID": np.arange(n),
+                                                "cat": cat, "price": price,
                                                 "Emb": x})
         out["ingest_s"] = time.perf_counter() - t0
         if code != 0 or res["inserted"] != n:
@@ -421,9 +521,18 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
                             "p99": float(np.percentile(lat, 99))}
         log(f"graph single queries (ms): {json.dumps(out['single_ms'])}")
 
-        # Grouped queries, fused and split traversal.
+        # Grouped queries, fused and split traversal; oracles of the
+        # filtered and REST phases are taken now, while x is on the card.
         n_rec = min(2048, n_q)
         want = oracle_top10_gpu(x_dev, x, queries[:n_rec])
+        keep_cat = cat < 5
+        want_cat = masked_oracle_gpu(x_dev, x, queries[:n_rec], keep_cat)
+        rest_wants = {}
+        for fi, (name, _, pred) in enumerate(REST_FILTERS):
+            qf = queries[fi:REST_QUERIES:len(REST_FILTERS)]
+            rest_wants[name] = (
+                oracle_top10_gpu(x_dev, x, qf) if pred is None
+                else masked_oracle_gpu(x_dev, x, qf, pred(cat, price)))
         del x_dev
         torch.cuda.empty_cache()
         valid = table.segment.valid_mask()
@@ -462,7 +571,286 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
                                      "f32 recomputation")
             out["grouped"][mode] = r
             log(f"graph grouped FusedTraversal={mode}: {json.dumps(r)}")
+
+        # Grouped queries with a device filter (about half the rows): the
+        # grouped graph program with a widened beam.
+        assert vdb.update_config({"FusedTraversal": "auto"}) == 0
+        out["filtered"] = grouped_filtered(
+            table, "cat < 5", queries, valid, batch, x, keep_cat, want_cat,
+            WIDENED_RECALL_FLOOR)
+        if out["filtered"]["gather_launches"] <= 0:
+            raise AssertionError("filtered grouped graph pass never "
+                                 "launched the gather kernel")
+        log(f"graph filtered grouped: {json.dumps(out['filtered'])}")
+
+        out["rest"], x_new = run_rest(table, x, queries, cat, price,
+                                      rest_wants)
+        log(f"rest: {json.dumps(out['rest'])}")
+        out["cli"] = run_cli(tmp, table, np.concatenate([x, x_new]),
+                             np.concatenate([price,
+                                             np.arange(len(x_new)) % 100]))
+        log(f"cli: {json.dumps(out['cli'])}")
         vdb.unload_db("graph")
+    return out
+
+
+def masked_oracle_gpu(x_dev: torch.Tensor, x: np.ndarray, q: np.ndarray,
+                      keep: np.ndarray, k: int = 10) -> np.ndarray:
+    """oracle_top10_gpu over the rows where `keep` holds, as global ids."""
+    rows = np.nonzero(keep)[0]
+    sub = x_dev[torch.from_numpy(rows).to(x_dev.device)]
+    return rows[oracle_top10_gpu(sub, x[rows], q, k)]
+
+
+def _post(conn: http.client.HTTPConnection, path: str, body=None):
+    """One request on a kept-alive connection -> (status, JSON, seconds)."""
+    data = json.dumps(body).encode() if body is not None else b""
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=data,
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    raw = r.read()
+    return r.status, json.loads(raw), time.perf_counter() - t0
+
+
+def _get(port: int, path: str, timeout: float = 30.0):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def _query_body(q: np.ndarray, flt: str, limit: int = 10):
+    return {"table": "docs", "queryField": "Emb", "queryVector": q.tolist(),
+            "limit": limit, "response": ["ID"], "withDistance": True,
+            "filter": flt}
+
+
+def run_rest(table, x: np.ndarray, queries: np.ndarray, cat: np.ndarray,
+             price: np.ndarray, wants) -> Tuple[dict, np.ndarray]:
+    """The REST server in-process over the database that holds the graph:
+    rest.create_server(0, db) on a daemon thread, the device executor loop
+    on a second one. REST_QUERIES single queries from REST_CLIENTS client
+    threads, spread evenly over REST_FILTERS and checked against masked
+    oracles; then an insert over HTTP (the new rows are served from the
+    flat tail) and POST /api/rebuild. Returns its numbers and the inserted
+    vectors."""
+    server = vdb._db
+    n = table.segment.record_number
+    httpd = rest.create_server(0, server, host="127.0.0.1")
+    port = httpd.server_address[1]
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    exec_thread = threading.Thread(target=server.device_executor.run_loop,
+                                   daemon=True)
+    http_thread.start()
+    exec_thread.start()
+    path = "/api/graph/data/query"
+    out = {"port_requests": REST_QUERIES, "clients": REST_CLIENTS}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        for fi, (_, flt, _) in enumerate(REST_FILTERS):  # warm-up
+            for i in range(4):
+                st, body, _ = _post(conn, path, _query_body(
+                    queries[-1 - 4 * fi - i], flt))
+                if st != 200:
+                    raise AssertionError(f"REST warm-up {flt!r}: {st} {body}")
+        results = [None] * REST_QUERIES
+        errors = []
+
+        def client(tid: int):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                for i in range(tid, REST_QUERIES, REST_CLIENTS):
+                    flt = REST_FILTERS[i % len(REST_FILTERS)][1]
+                    results[i] = _post(c, path, _query_body(queries[i], flt))
+            except Exception as e:  # reported by the caller below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(REST_CLIENTS)]
+        torch.cuda.synchronize()
+        partial_min.reset_launches()
+        gather.reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        out["partial_min_launches"] = partial_min.launches
+        out["gather_launches"] = gather.launches
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"REST clients failed: {errors[:3]}")
+        out["qps"] = REST_QUERIES / wall
+        out["wall_s"] = wall
+        if out["gather_launches"] <= 0:
+            raise AssertionError("REST queries never launched the gather "
+                                 "kernel")
+        out["filters"] = {}
+        for fi, (name, flt, pred) in enumerate(REST_FILTERS):
+            idx = list(range(fi, REST_QUERIES, len(REST_FILTERS)))
+            lat_ms = np.asarray([results[i][2] for i in idx]) * 1e3
+            hits, checked = 0, 0
+            for j, i in enumerate(idx):
+                st, body, _ = results[i]
+                if st != 200:
+                    raise AssertionError(f"REST {flt!r}: {st} {body}")
+                ids = np.asarray([r["ID"] for r in body["result"]], np.int64)
+                d = np.asarray([r["@distance"] for r in body["result"]])
+                if len(ids) != 10:
+                    raise AssertionError(f"REST {flt!r}: {len(ids)} rows")
+                if pred is not None and not pred(cat[ids], price[ids]).all():
+                    raise AssertionError(f"REST {flt!r}: a row fails the "
+                                         "filter")
+                exact = ((x[ids] - queries[i]) ** 2).sum(1)
+                if not np.allclose(d, exact, rtol=1e-5, atol=0.0):
+                    raise AssertionError(f"REST {flt!r}: @distance differs "
+                                         "from f32 recomputation")
+                hits += len(set(ids.tolist()) & set(wants[name][j].tolist()))
+                checked += 10
+            r = {"filter": flt,
+                 "selectivity": (1.0 if pred is None
+                                 else float(pred(cat, price).mean())),
+                 "recall_at_10": hits / checked,
+                 "p50_ms": float(np.percentile(lat_ms, 50)),
+                 "p99_ms": float(np.percentile(lat_ms, 99))}
+            floor = (RECALL_FLOOR if name in ("none", "price<5")
+                     else WIDENED_RECALL_FLOOR)
+            if r["recall_at_10"] < floor:
+                raise AssertionError(f"REST {flt!r}: recall@10 "
+                                     f"{r['recall_at_10']} < {floor}")
+            out["filters"][name] = r
+            log(f"rest {name}: {json.dumps(r)}")
+
+        # Insert over HTTP: near-copies of existing rows, found first from
+        # the flat tail before the rebuild.
+        rng = np.random.default_rng(2)
+        x_new = (x[rng.integers(0, n, REST_INSERT)] + 0.05 * rng.normal(
+            size=(REST_INSERT, x.shape[1]))).astype(np.float32)
+        data = [{"ID": n + j, "cat": j % 10, "price": float(j % 100),
+                 "Emb": x_new[j].tolist()} for j in range(REST_INSERT)]
+        st, body, secs = _post(conn, "/api/graph/data/insert",
+                               {"table": "docs", "data": data})
+        if st != 200 or body["result"]["inserted"] != REST_INSERT:
+            raise AssertionError(f"REST insert: {st} {body}")
+        out["insert_s"] = secs
+        if table.graphs["Emb"].num_rows != n:
+            raise AssertionError("the graph changed before the rebuild")
+        for j in range(0, REST_INSERT, REST_INSERT // 16):
+            st, body, _ = _post(conn, path, _query_body(x_new[j], ""))
+            if st != 200 or body["result"][0]["ID"] != n + j:
+                raise AssertionError(f"tail query of new row {n + j}: "
+                                     f"{st} {body}")
+
+        # POST /api/rebuild: DBServer.rebuild, as the rebuild thread calls
+        # it; the graph then covers every row.
+        torch.cuda.synchronize()
+        partial_min.reset_launches()
+        gather.reset_launches()
+        st, body, secs = _post(conn, "/api/rebuild")
+        torch.cuda.synchronize()
+        out["rebuild_s"] = secs
+        out["rebuild_partial_min_launches"] = partial_min.launches
+        out["rebuild_gather_launches"] = gather.launches
+        graph = table.graphs["Emb"]
+        if st != 200 or graph is None or graph.num_rows != n + REST_INSERT:
+            raise AssertionError(f"REST rebuild: {st} {body}")
+        if partial_min.launches <= 0:
+            raise AssertionError("REST rebuild never launched partial-min")
+        st, body, _ = _post(conn, path, _query_body(x_new[1], ""))
+        if st != 200 or body["result"][0]["ID"] != n + 1:
+            raise AssertionError(f"query after rebuild: {st} {body}")
+        conn.close()
+    finally:
+        server.device_executor.stop()
+        exec_thread.join(timeout=60)
+        httpd.shutdown()
+        httpd.server_close()
+    return out, x_new
+
+
+def run_cli(tmp: str, table, x: np.ndarray, price: np.ndarray) -> dict:
+    """`python -m vectordb_tpu_torch -p <free port> -r false` in a child
+    process, as users start it: wait for GET /state, POST /api/load a dump
+    of the database, a query of X[42], a filtered query against the
+    oracle, GET statistics, then SIGINT and exit code 0, with the card
+    named in its log. `x` and `price` cover every row of the table. Only
+    the child's own PID is signalled."""
+    n_total = table.segment.record_number
+    dump = os.path.join(tmp, "dump")
+    if vdb.dump_db("graph", dump) != 0:
+        raise AssertionError("dump_db failed")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(tmp, "cli.log")
+    out = {}
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vectordb_tpu_torch", "-p", str(port),
+             "-r", "false"], stdout=f, stderr=subprocess.STDOUT, cwd=root,
+            env=dict(os.environ, PYTHONPATH=root))
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("the CLI exited while starting")
+            try:
+                if _get(port, "/state", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > CLI_BOOT_S:
+                raise AssertionError(f"no GET /state in {CLI_BOOT_S} s")
+            time.sleep(0.5)
+        out["boot_s"] = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        st, body, secs = _post(conn, "/api/load", {
+            "name": "cli", "path": dump,
+            "vectorScale": n_total + REST_INSERT})
+        if st != 200:
+            raise AssertionError(f"CLI load: {st} {body}")
+        out["load_s"] = secs
+        path = "/api/cli/data/query"
+        st, body, secs = _post(conn, path, _query_body(x[42], ""))
+        if st != 200 or body["result"][0]["ID"] != 42:
+            raise AssertionError(f"CLI query X[42]: {st} {body}")
+        out["first_query_s"] = secs
+        rows = np.nonzero(price < 50.0)[0]
+        want = rows[oracle_top10(x[rows], x[7:8])[0]]
+        st, body, _ = _post(conn, path, _query_body(x[7], "price < 50.0"))
+        got = [r["ID"] for r in body.get("result", [])]
+        if st != 200 or set(got) != set(want.tolist()):
+            raise AssertionError(f"CLI filtered query: {got} vs {want}")
+        conn.close()
+        st, body = _get(port, "/api/cli/statistics")
+        if st != 200 or body["result"]["tables"][0]["totalRecordCount"] \
+                != n_total:
+            raise AssertionError(f"CLI statistics: {st} {body}")
+        proc.send_signal(signal.SIGINT)
+        out["exit_code"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    with open(log_path) as f:
+        text = f.read()
+    if out.get("exit_code") != 0:
+        raise AssertionError(f"CLI exit code {out.get('exit_code')}:\n"
+                             + text[-2000:])
+    name = torch.cuda.get_device_name(0)
+    line = next((ln for ln in text.splitlines()
+                 if "serving device: " + name in ln), None)
+    if line is None:
+        raise AssertionError("the CLI log names no CUDA card:\n"
+                             + text[-2000:])
+    out["device_line"] = line.strip()
     return out
 
 
@@ -500,15 +888,22 @@ def main() -> int:
         {"name": "partial_min", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/partial_min.cu",
          "replaces": "vectordb_tpu/ops/pallas_topk.py:45",
-         "launches": sl["launches"] + gr["build_partial_min_launches"],
+         "launches": (sl["launches"]
+                      + sl["filtered"]["partial_min_launches"]
+                      + gr["build_partial_min_launches"]
+                      + gr["filtered"]["partial_min_launches"]
+                      + gr["rest"]["partial_min_launches"]
+                      + gr["rest"]["rebuild_partial_min_launches"]),
          "max_abs_err": max(pm_err, knn_err),
          "ms": main_pm[0], "plain_ms": main_pm[1],
          "knn_block_ms": knn_ms, "knn_block_plain_ms": knn_plain_ms},
         {"name": "gather_rows", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/gather_rows.cu",
          "replaces": "benchmarks/gather_micro.py:30",
-         "launches": sum(r["gather_launches"]
-                         for r in gr["grouped"].values()),
+         "launches": (sum(r["gather_launches"]
+                          for r in gr["grouped"].values())
+                      + gr["filtered"]["gather_launches"]
+                      + gr["rest"]["gather_launches"]),
          "max_abs_err": max(c["max_abs_err"] for c in gather_cases.values()),
          "ms": trav["ms"], "plain_ms": trav["plain_ms"],
          "cases": gather_cases}]}), flush=True)

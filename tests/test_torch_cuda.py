@@ -1,6 +1,7 @@
 """The port on a CUDA device: the partial-min and row-gather kernels
-against their plain versions, and the flat-serve and graph slices through
-the kernels.
+against their plain versions, the flat-serve and graph slices through
+the kernels, device filter masks against the host evaluator, and a REST
+query over a CUDA store.
 
 These tests need the card and skip without one. They import neither jax
 nor vectordb_tpu, so they also run where JAX is not installed:
@@ -8,18 +9,93 @@ nor vectordb_tpu, so they also run where JAX is not installed:
 Tolerance (kernel vs plain version): both add exact bf16 x bf16 products
 in f32 in different orders — rtol 1e-5, atol 1e-5 * max(|q|^2 + |x|^2),
 and ids equal except at such near-ties. The row gather copies bytes, so it
-must equal its plain version bit for bit.
+must equal its plain version bit for bit. Device filter masks must equal
+the host evaluator's bit for bit (the adversarial table below is also used
+by tests/test_torch_device_filter.py on the CPU).
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch.config import global_config
+from vectordb_tpu_torch.db_server import DBServer
+from vectordb_tpu_torch.expr.evaluator import FilterCompiler
+from vectordb_tpu_torch.expr.parser import parse_expr
 from vectordb_tpu_torch.ops import flat, gather, partial_min
+from vectordb_tpu_torch.rest.server import RestServer
 from vectordb_tpu_torch.schema import MetricType
 
 METRICS = [MetricType.EUCLIDEAN, MetricType.COSINE, MetricType.DOT_PRODUCT]
+
+_ULP = float(np.spacing(np.float32(10.5)))
+_ADV_PRICES = [10.5, 10.5 + 1e-9, 10.5 - 1e-9, 10.5 + _ULP, 10.5 - _ULP,
+               10.5 + _ULP / 2, 10.5 - _ULP / 2, 0.0, -3.25, 1e300]
+_ADV_BIG = [(1 << 24) - 1, 1 << 24, (1 << 24) + 1, 1 << 40, (1 << 40) + 1,
+            -(1 << 40), (1 << 53) + 1, 0, 7, -7]
+_ADV_STOCK = [0, 1, 2, 3, -3, 5, 6, 7, 0, 9]
+
+ADV_FILTERS = [
+    "price > 10.5", "price >= 10.5", "price = 10.5", "price < 10.5",
+    "price <> 10.5", "big = 16777217", "big > 16777216",
+    "big = 1099511627777", "big < 1099511627777", "big = 9007199254740993",
+    "price * 2.0 + stock > 30.0", "stock % 3 = 0", "NOT (stock % 3 = 0)",
+    "stock % 0 = 0", "price / stock > 1.0", "price / 0 = 0.0",
+    "big % stock = 0", "big / stock > 1.0", "stock - 3 * 2 < -1",
+    "f32 > 0.1", "f32 * 10 = 1.0", "active AND price > 10.5",
+    "active OR stock > 5", "stock > 2.5", "big * 3 > 3298534883328",
+    "NEARBY(loc, 10.0, 20.0, 2000.0)",
+]
+
+
+def adversarial_table(tmp_path):
+    """The 40-row table of adversarial filter values (on the engine's
+    device); returns (table, columns)."""
+    n = 40
+    i = np.arange(n)
+    cols = {"ID": i,
+            "price": np.asarray(_ADV_PRICES * 4, np.float64),
+            "big": np.asarray(_ADV_BIG * 4, np.int64),
+            "stock": np.asarray(_ADV_STOCK * 4, np.int32),
+            "f32": np.asarray([0.1, 0.2, 0.30000001, 1e-8] * 10, np.float32),
+            "active": i % 3 == 0,
+            "loc": (np.linspace(-40, 50, n), np.linspace(-10, 50, n)),
+            "V": np.random.default_rng(0).normal(size=(n, 4)).astype(
+                np.float32)}
+    assert vdb.load_db("adv", str(tmp_path / "adv")) == 0
+    vdb.use_db("adv")
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "price", "dataType": "DOUBLE"},
+        {"name": "big", "dataType": "BIGINT"},
+        {"name": "stock", "dataType": "INT"},
+        {"name": "f32", "dataType": "FLOAT"},
+        {"name": "active", "dataType": "BOOL"},
+        {"name": "loc", "dataType": "GEO_POINT"},
+        {"name": "V", "dataType": "VECTOR_FLOAT", "dimensions": 4,
+         "metricType": "EUCLIDEAN"}])
+    vdb.insert_columns("t", cols)
+    return vdb._db.databases["adv"].tables["t"], cols
+
+
+def device_and_host_masks(table, flt):
+    """(device mask, host mask) of one filter over the table's rows."""
+    seg = table.segment
+    n = seg.record_number
+    nodes = parse_expr(flt, table.field_type_map)
+    compiler = FilterCompiler(nodes, seg.column)
+    ctx = table._device_filter(nodes, compiler)
+    assert ctx is not None, flt
+    store = seg.device_view("V")
+    valid_dev = table._device_mask(store, seg.valid_mask(), 0, True)
+    dev = ctx.device.mask(valid_dev, store.capacity)
+    assert dev.dtype == torch.bool and dev.shape == (store.capacity,)
+    assert not dev[n:].any()
+    return dev[:n].cpu().numpy(), compiler.mask(n_rows=n)
+
+
 
 
 @pytest.fixture
@@ -250,3 +326,56 @@ def test_graph_slice_goes_through_both_kernels(cuda_device, tmp_path, fused):
         hits += len(set(ids[i].tolist()) & set(np.argsort(dd)[:10].tolist()))
         np.testing.assert_allclose(d[i], dd[ids[i]], rtol=1e-5)
     assert hits / 1000 >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flt", ADV_FILTERS)
+def test_device_mask_on_cuda_equals_host_mask(cuda_device, tmp_path, flt):
+    table, _ = adversarial_table(tmp_path)
+    assert table.segment.device_column("price", 4096).is_cuda
+    dev, host = device_and_host_masks(table, flt)
+    np.testing.assert_array_equal(dev, host, err_msg=flt)
+
+
+@pytest.mark.gpu
+def test_rest_query_from_cuda_store(cuda_device, tmp_path):
+    """In-process REST over a CUDA store: filtered and unfiltered queries
+    against a masked numpy oracle, through the columnar encoder."""
+    n, dim = 20000, 128
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    price = rng.uniform(0, 100, n)
+    rest = RestServer(DBServer())
+    try:
+        assert rest.dispatch("POST", "/api/load", {
+            "name": "r", "path": str(tmp_path / "r")}, {})[0] == 200
+        assert rest.dispatch("POST", "/api/r/schema/tables", {
+            "name": "t", "fields": [
+                {"name": "ID", "dataType": "INT", "primaryKey": True},
+                {"name": "price", "dataType": "DOUBLE"},
+                {"name": "Emb", "dataType": "VECTOR_FLOAT",
+                 "dimensions": dim, "metricType": "EUCLIDEAN"}]}, {})[0] \
+            == 200
+        assert rest.db.insert_columns("r", "t", {
+            "ID": np.arange(n), "price": price, "Emb": x}).ok()
+        table = rest.db.get_db("r").get_table("t")
+        for flt, keep in (("", np.ones(n, bool)),
+                          ("price > 50.0", price > 50.0)):
+            q = x[123] + 0.05 * rng.normal(size=dim).astype(np.float32)
+            code, payload = rest.dispatch("POST", "/api/r/data/query", {
+                "table": "t", "queryVector": q.tolist(), "limit": 10,
+                "response": ["ID"], "withDistance": True, "filter": flt},
+                {})
+            assert code == 200
+            rows = (json.loads(payload) if isinstance(payload, bytes)
+                    else payload)["result"]
+            ids = np.asarray([r["ID"] for r in rows])
+            d = ((x - q) ** 2).sum(1)
+            want = np.argsort(np.where(keep, d, np.inf))[:10]
+            assert set(ids.tolist()) == set(want.tolist()), flt
+            np.testing.assert_allclose([r["@distance"] for r in rows],
+                                       d[ids], rtol=1e-5)
+        assert table.segment.device_view("Emb").buf.is_cuda
+        assert table._device_filter_cache
+    finally:
+        rest.db.stop()

@@ -1,14 +1,16 @@
 """vectordb_tpu_torch — the vectordb_tpu engine on PyTorch and CUDA.
 
 The PyTorch/CUDA port of vectordb_tpu: the same data model (databases ->
-tables -> fields), filter language, facets, WAL + snapshot persistence and
-function API, with the dense query path running on an NVIDIA GPU: the
-flat-serve scan and the graph index (exact-KNN build, beam traversal,
-search tuning). Its two hand-written CUDA kernels are the partial-min scan
-(csrc/partial_min.cu) and the row gather of traversal (csrc/gather_rows.cu).
-Parts of the TPU package not ported yet (sharding, sparse/hybrid search,
-the IVF KNN build, REST server) raise NOT_IMPLEMENTED_ERROR; see
-ROADMAP.md.
+tables -> fields), filter language, facets, WAL + snapshot persistence,
+function API, REST server (`python -m vectordb_tpu_torch`, rest/), periodic
+rebuild thread, leader/follower and embedding service, with the dense query
+path running on an NVIDIA GPU: the flat-serve scan, the graph index
+(exact-KNN build, beam traversal, search tuning) and filter masks evaluated
+on the device (expr/device.py). Its two hand-written CUDA kernels are the
+partial-min scan (csrc/partial_min.cu) and the row gather of traversal
+(csrc/gather_rows.cu). Parts of the TPU package not ported yet (sharding,
+sparse/hybrid search, the IVF KNN build, the reduced-precision query wires)
+raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
 
 A data directory written by either package opens in the other.
 
@@ -190,14 +192,27 @@ def dump_db(db_name: str, db_path: str) -> int:
     return _engine().dump_db(db_name, db_path).code
 
 
+def export_reference_format(db_name: Optional[str] = None) -> int:
+    """Write the database's state as the reference C++ engine's binary
+    artifacts inside its own data directory (rollback / two-way migration;
+    see compat.py)."""
+    return _engine().export_reference_format(db_name or _db_name).code
+
+
 def update_config(cfg: Dict[str, Any]) -> int:
-    ok, _ = global_config.update(cfg)
-    return 0 if ok else 1
+    ok, swap = global_config.update(cfg)
+    if not ok:
+        return 1
+    if swap:
+        _engine().swap_executors()
+    return 0
 
 
 def _reset_for_tests() -> None:
-    """Drop the module-global engine (test isolation only)."""
+    """Stop and drop the module-global engine (test isolation only)."""
     global _db, _db_name
+    if _db is not None:
+        _db.stop()
     _db = None
     _db_name = ""
 
@@ -208,6 +223,6 @@ __all__ = [
     "load_db", "use_db", "create_table", "insert", "delete_by_pk", "delete",
     "query", "hybrid_query", "tune_search", "get", "insert_columns",
     "drop_table", "unload_db", "statistics",
-    "rebuild", "dump_db", "update_config",
+    "rebuild", "dump_db", "update_config", "export_reference_format",
     "InitTableScale",
 ]

@@ -14,16 +14,19 @@ from .table import Table
 
 class Database:
     def __init__(self, db_schema: DatabaseSchema, is_leader: bool,
-                 init_table_scale: int = 150000, wal_enabled: bool = True):
+                 init_table_scale: int = 150000, wal_enabled: bool = True,
+                 embedding_service=None):
         self.schema = db_schema
         self.is_leader = is_leader
         self.init_table_scale = init_table_scale
         self.wal_enabled = wal_enabled
+        self.embedding_service = embedding_service
         self.tables: Dict[str, Table] = {}
         self._lock = threading.Lock()
         for ts in db_schema.tables:
             self.tables[ts.name] = Table(
-                ts, db_schema.path, is_leader, init_table_scale, wal_enabled)
+                ts, db_schema.path, is_leader, init_table_scale, wal_enabled,
+                embedding_service)
 
     def get_table(self, name: str) -> Optional[Table]:
         return self.tables.get(name)
@@ -38,7 +41,8 @@ class Database:
                               "Table already exists: " + table_schema.name)
             self.tables[table_schema.name] = Table(
                 table_schema, self.schema.path, self.is_leader,
-                self.init_table_scale, self.wal_enabled)
+                self.init_table_scale, self.wal_enabled,
+                self.embedding_service)
         return Status.OK()
 
     def delete_table(self, name: str) -> Status:
@@ -62,12 +66,22 @@ class Database:
                 first = status
         return first
 
+    def swap_executors(self) -> Status:
+        for table in list(self.tables.values()):
+            table.swap_executors()
+        return Status.OK()
+
     def dump(self, path: str) -> Status:
         for table in list(self.tables.values()):
             status = table.dump(path)
             if not status.ok():
                 return status
         return Status.OK()
+
+    def set_leader(self, leader: bool) -> None:
+        self.is_leader = leader
+        for table in self.tables.values():
+            table.set_leader(leader)
 
     def set_wal_enabled(self, enabled: bool) -> None:
         self.wal_enabled = enabled

@@ -1,31 +1,38 @@
 """DBServer: the engine facade (reference db/db_server.{hpp,cpp};
 counterpart of vectordb_tpu/db_server.py).
 
-Owns the catalog and the name -> Database registry. Its entry points mirror
-the reference facade for the ported slice: LoadDB/UnloadDB/DumpDB/
-CreateTable/DropTable/Insert/Delete/Search/Project/GetStatistics/Rebuild
-and search tuning. Hybrid search answers NOT_IMPLEMENTED_ERROR; the rebuild
-thread, leader/follower switching and the embedding service are not ported.
+Owns the catalog, the name -> Database registry, the background rebuild
+thread (every RebuildIntervalSeconds, 60 s by default; db_server.hpp:21,
+133-142), the leader flag and the embedding-service injection point. Its
+entry points mirror the reference facade: LoadDB/UnloadDB/ReleaseDB/DumpDB/
+CreateTable/DropTable/Insert/InsertPrepare/Delete/Search/SearchByContent/
+Project/GetStatistics/Rebuild/SwapExecutors/SetLeader, plus search tuning
+and the reference-format export. Hybrid search answers
+NOT_IMPLEMENTED_ERROR (sparse and hybrid search are not ported yet).
 """
 from __future__ import annotations
 
 import json
 import threading
+import traceback
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .batcher import QueryBatcher
 from .catalog import Catalog
+from .config import global_config
 from .database import Database
 from .executor import DeviceExecutor
 from .errors import (DB_UNEXPECTED_ERROR, INVALID_PAYLOAD, Status,
                      VectorDBError)
 from .expr.parser import parse_expr
 from .facets import preprocess_facets
+from .logger import logger
 from .ops.sparse import SparseVector
 from .schema import (DENSE_VECTOR_TYPES, INT_TYPES, FieldType,
                      parse_table_schema_from_user_json)
+
 
 class DBServer:
     def __init__(self):
@@ -38,6 +45,53 @@ class DBServer:
         self.databases: Dict[str, Database] = {}
         self._lock = threading.Lock()
         self.is_leader = True
+        self.embedding_service = None
+        self._stop = threading.Event()
+        self._rebuild_thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------------
+    # Lifecycle.
+    # ------------------------------------------------------------------
+
+    def start_rebuild(self) -> None:
+        """Start the background thread that calls rebuild() every
+        RebuildIntervalSeconds (read afresh each cycle). A failed or
+        crashed cycle is logged and the thread goes on."""
+        if self._rebuild_thread is not None:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.wait(global_config.rebuild_interval_s):
+                try:
+                    status = self.rebuild()
+                    if not status.ok():
+                        logger.error("Rebuild failed: " + status.message)
+                except Exception:  # the thread must outlive a bad cycle
+                    logger.error("Rebuild cycle crashed:\n"
+                                 + traceback.format_exc())
+
+        self._rebuild_thread = threading.Thread(
+            target=loop, name="vdb-rebuild", daemon=True)
+        self._rebuild_thread.start()
+
+    def stop(self) -> None:
+        """Stop the rebuild thread and wait for it (a cycle in progress
+        finishes first)."""
+        self._stop.set()
+        if self._rebuild_thread is not None:
+            self._rebuild_thread.join()
+            self._rebuild_thread = None
+
+    def inject_embedding_service(self, service) -> None:
+        self.embedding_service = service
+
+    def set_leader(self, leader: bool) -> None:
+        self.is_leader = leader
+        self.catalog.set_leader(leader)
+        for db in self.databases.values():
+            if db is not None:
+                db.set_leader(leader)
 
     # ------------------------------------------------------------------
     # DB registry (reference db_server.cpp:27-133).
@@ -45,7 +99,10 @@ class DBServer:
 
     def load_db(self, db_name: str, db_path: str,
                 init_table_scale: int = 150000,
-                wal_enabled: bool = True) -> Status:
+                wal_enabled: bool = True,
+                headers: Optional[Dict[str, str]] = None) -> Status:
+        """Load (or create) a database. `headers` (the request's API-key
+        headers) is accepted for the REST layer's call and not used."""
         from .errors import DB_ALREADY_EXIST
 
         # Reserve the name under the lock so concurrent loads of the same
@@ -58,7 +115,7 @@ class DBServer:
         try:
             schema = self.catalog.load_database(db_name, db_path)
             db = Database(schema, self.is_leader, init_table_scale,
-                          wal_enabled)
+                          wal_enabled, self.embedding_service)
         except Exception as e:
             # Any failure (not just VectorDBError — e.g. a corrupted
             # on-disk artifact raising ValueError) must release the name
@@ -82,6 +139,9 @@ class DBServer:
         self.catalog.unload_database(db_name)
         return Status.OK()
 
+    def release_db(self, db_name: str) -> Status:
+        return self.unload_db(db_name)
+
     def dump_db(self, db_name: str, path: str) -> Status:
         from .errors import DB_NOT_FOUND
 
@@ -95,6 +155,23 @@ class DBServer:
         # SaveDBToFile(db_catalog_path + "/catalog")), or the dump can
         # never be loaded.
         return self.catalog.save(db_name, path)
+
+    def export_reference_format(self, db_name: str) -> Status:
+        """Write every table's state as the reference C++ engine's binary
+        artifacts (data_mvp.bin + ann_graph_<fid>.bin) inside the db path;
+        the catalog is already the shared JSON format, so the reference
+        engine opens the directory directly (rollback / two-way migration;
+        see compat.py)."""
+        from .errors import DB_NOT_FOUND
+
+        db = self.get_db(db_name)
+        if db is None:
+            return Status(DB_NOT_FOUND, "DB not found: " + db_name)
+        for table in db.tables.values():
+            status = table.export_reference_format()
+            if not status.ok():
+                return status
+        return self.catalog.save(db_name)
 
     def get_db(self, db_name: str) -> Optional[Database]:
         db = self.databases.get(db_name)
@@ -130,7 +207,9 @@ class DBServer:
             schema = parse_table_schema_from_user_json(body)
         except VectorDBError as e:
             return e.status, -1
-        status = self.catalog.create_table(db_name, schema, [])
+        models = (self.embedding_service.get_supported_models()
+                  if self.embedding_service and schema.indices else [])
+        status = self.catalog.create_table(db_name, schema, models)
         if not status.ok():
             return status, -1
         status = db.create_table(schema)
@@ -171,12 +250,13 @@ class DBServer:
 
     def insert(self, db_name: str, table_name: str,
                records: List[Dict[str, Any]],
+               headers: Optional[Dict[str, str]] = None,
                upsert: bool = False) -> Status:
         try:
             table = self._get_table(db_name, table_name)
         except VectorDBError as e:
             return e.status
-        return table.insert(records, upsert=upsert)
+        return table.insert(records, upsert=upsert, headers=headers)
 
     def insert_columns(self, db_name: str, table_name: str,
                        columns: Dict[str, Any], n_rows: Optional[int] = None,
@@ -193,6 +273,14 @@ class DBServer:
             n_rows = (len(first[0]) if isinstance(first, tuple)
                       else len(first))
         return table.insert_columns(columns, int(n_rows), upsert=upsert)
+
+    def insert_prepare(self, db_name: str, table_name: str,
+                       pks: List[Any]) -> Tuple[Status, Dict[str, Any]]:
+        try:
+            table = self._get_table(db_name, table_name)
+        except VectorDBError as e:
+            return e.status, {}
+        return Status.OK(), table.insert_prepare(pks)
 
     def delete(self, db_name: str, table_name: str, pk_list: List[Any],
                filter_str: str = "") -> Status:
@@ -248,7 +336,8 @@ class DBServer:
     def search(self, db_name: str, table_name: str, field_name: str,
                query_fields: List[str], query_vector,
                limit: int, filter_str: str = "", with_distance: bool = False,
-               facets_config: Optional[List[Dict[str, Any]]] = None
+               facets_config: Optional[List[Dict[str, Any]]] = None,
+               columnar: bool = False
                ) -> Tuple[Status, List[Dict[str, Any]], List[Any]]:
         try:
             table = self._get_table(db_name, table_name)
@@ -271,7 +360,7 @@ class DBServer:
                                        "vector field dimension."), [], [])
             rows, facets = table.search(field_name, query_fields, dim,
                                         query, limit, nodes, with_distance,
-                                        facet_executors)
+                                        facet_executors, columnar=columnar)
         except VectorDBError as e:
             return e.status, [], []
         return Status.OK(), rows, facets
@@ -312,6 +401,51 @@ class DBServer:
             return e.status, {}
         return Status.OK(), report
 
+    def search_by_content(self, db_name: str, table_name: str,
+                          index_name: str, query_fields: List[str],
+                          query: str, limit: int, filter_str: str = "",
+                          with_distance: bool = False,
+                          facets_config: Optional[List[Dict[str, Any]]] = None,
+                          headers: Optional[Dict[str, str]] = None
+                          ) -> Tuple[Status, List[Dict[str, Any]], List[Any]]:
+        """Embed query text via the embedding service, then search
+        (reference db_server.cpp:512-600)."""
+        try:
+            table = self._get_table(db_name, table_name)
+        except VectorDBError as e:
+            return e.status, [], []
+        if not index_name:
+            for f in table.schema.fields:
+                if f.is_index_field and f.is_vector():
+                    if index_name:
+                        return (Status(INVALID_PAYLOAD,
+                                       "Must specify queryIndex if there are "
+                                       "more than 1 vector indices."), [], [])
+                    index_name = f.name
+        if not index_name:
+            return (Status(INVALID_PAYLOAD,
+                           "There is no index in the table. Cannot search by "
+                           "query content."), [], [])
+        index = next((i for i in table.schema.indices
+                      if i.name == index_name), None)
+        if index is None:
+            return (Status(INVALID_PAYLOAD, "Index not found: " + index_name),
+                    [], [])
+        if self.embedding_service is None:
+            return (Status(DB_UNEXPECTED_ERROR,
+                           "Embedding service is not configured."), [], [])
+        field = table.schema.fields[index.tgt_field_id]
+        try:
+            vec = self.embedding_service.dense_embed_query(
+                index.embedding_model_name, query, field.vector_dimension,
+                headers or {}, index.dimensions > 0)
+        except VectorDBError as e:
+            logger.error("Embedding service error: " + e.message)
+            return e.status, [], []
+        return self.search(db_name, table_name, index_name, query_fields,
+                           vec, limit, filter_str, with_distance,
+                           facets_config)
+
     def project(self, db_name: str, table_name: str,
                 query_fields: List[str], primary_keys: List[Any],
                 filter_str: str = "", skip: int = 0, limit: int = -1,
@@ -337,8 +471,8 @@ class DBServer:
 
     def rebuild(self) -> Status:
         """Rebuild the graphs of every loaded database (on the device
-        executor); returns the first failing status, else OK. The periodic
-        rebuild thread of the JAX package is not ported."""
+        executor); returns the first failing status, else OK. The rebuild
+        thread and POST /api/rebuild call this."""
         first = Status.OK()
         for name in list(self.databases.keys()):
             db = self.databases.get(name)
@@ -348,6 +482,12 @@ class DBServer:
             if not status.ok() and first.ok():
                 first = status
         return first
+
+    def swap_executors(self) -> Status:
+        for db in list(self.databases.values()):
+            if db is not None:
+                db.swap_executors()
+        return Status.OK()
 
     def set_wal_enabled(self, db_name: str, enabled: bool) -> Status:
         db = self.get_db(db_name)

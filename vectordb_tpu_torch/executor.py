@@ -28,7 +28,9 @@ class DeviceExecutor:
 
     def run_loop(self) -> None:
         """Drain submitted work until stop() — call from the thread that
-        should own the device (typically the process main thread)."""
+        should own the device (typically the process main thread). Work
+        still queued when the loop ends is cancelled, so its waiters raise
+        CancelledError instead of waiting forever."""
         self._thread_id = threading.get_ident()
         while not self._stop.is_set():
             try:
@@ -42,8 +44,15 @@ class DeviceExecutor:
                 except BaseException as e:  # propagate to the waiter
                     fut.set_exception(e)
         self._thread_id = None
+        while True:
+            try:
+                self._queue.get_nowait()[3].cancel()
+            except queue.Empty:
+                break
 
     def stop(self) -> None:
+        """Ask run_loop() to return after the work item in progress (safe
+        to call from a signal handler: it only sets an event)."""
         self._stop.set()
 
     @property

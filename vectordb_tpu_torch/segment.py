@@ -587,10 +587,19 @@ class TableSegment:
         return store
 
     def device_column(self, name: str, capacity: int):
-        """Device-resident primitive/geo column padded to `capacity`,
-        cached by segment mutation version (for device-side filter masks).
-        Returns None when the column can't be represented exactly in f32
-        (int values >= 2^24) — the caller falls back to the host path."""
+        """Device-resident primitive column, or (lat, lon) pair for a geo
+        column, zero-padded to `capacity` and cached by segment mutation
+        version (the inputs of expr/device.py filter masks).
+
+        Each column goes up in the dtype the host evaluator
+        (expr/evaluator.py) reads it in: float64 for DOUBLE and FLOAT and
+        for geo lat/lon, int64 for the int types, bool for BOOL. Every
+        column is therefore exact on the device and a device mask equals
+        the host mask bit for bit. vectordb_tpu uploads these columns as
+        float32 and falls back to the host for ints of 2^24 and up: its
+        float32 DOUBLE columns and constants round, so `price > 10.5` can
+        keep no row of prices 10.5 +- 1e-9 where the host keeps half
+        (ROADMAP queue 3)."""
         cache = getattr(self, "_device_col_cache", None)
         if cache is None:
             cache = self._device_col_cache = {}
@@ -600,22 +609,23 @@ class TableSegment:
             return hit[1]
         n = self.record_number
         dev = default_device()
+
+        def upload(col: np.ndarray, dtype) -> torch.Tensor:
+            p = np.zeros(capacity, dtype)
+            p[:n] = col[:n]
+            return torch.from_numpy(p).to(dev)
+
         if name in self.geo_cols:
             lat, lon = self.geo_cols[name]
-            pl = np.zeros(capacity, np.float32)
-            po = np.zeros(capacity, np.float32)
-            pl[:n] = lat[:n]
-            po[:n] = lon[:n]
-            out = (torch.from_numpy(pl).to(dev), torch.from_numpy(po).to(dev))
+            out = (upload(lat, np.float64), upload(lon, np.float64))
         else:
             col = self.primitive_cols[name]
-            if col.dtype.kind in "iu" and n and \
-                    np.abs(col[:n]).max(initial=0) >= (1 << 24):
-                out = None  # f32 can't represent exactly; host path
+            if col.dtype == np.bool_:
+                out = upload(col, np.bool_)
+            elif col.dtype.kind in "iu":
+                out = upload(col, np.int64)
             else:
-                p = np.zeros(capacity, np.float32)
-                p[:n] = col[:n]
-                out = torch.from_numpy(p).to(dev)
+                out = upload(col, np.float64)
         cache[key] = (self.mutation_version, out)
         return out
 
