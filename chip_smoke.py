@@ -7,7 +7,12 @@ parallel) and holds each against its plain PyTorch version on the card:
 the partial-min scan at the flat-serve shape (B = 8192 queries, N = 262,144
 rows, D = 128, bf16) and at the exact-KNN shape (B = 1,024, N = 1,048,576,
 exclude_self, n_valid); the row gather, bit for bit, at the traversal's
-shapes (bf16 store rows, int8 fused rows, int32 adjacency rows). Then it
+shapes (bf16 store rows, int8 fused rows, int32 adjacency rows). Each case
+prints its time beside its bound on the H100 (bytes moved once each at
+3.35 TB/s, FLOPs at the 989 TFLOP/s bf16 tensor-core rate; the share of
+the bound), the plain version's time, and a yardstick it is never
+replaced by: index_select on clamped ids for the gather, and for the scan
+the bf16 matmul that writes the [B, N] scores the scan never stores. Then it
 drives the port's paths, each with the launch counts set to 0 just before
 and read just after:
   - flat-serve: a 250,000 x 128 clustered table, single queries through
@@ -80,10 +85,10 @@ REST_FILTERS = (("none", "", None),
                 ("price>80", "price > 80.0", lambda c, p: p > 80.0),
                 ("price<5", "price < 5.0", lambda c, p: p < 5.0))
 CLI_BOOT_S = 120
-# Both sides add exact bf16 x bf16 products in f32, in different orders:
-# an order changes a sum of D terms by at most about D * 2^-24 of the sum of
-# magnitudes, which |q|^2 + |x|^2 bounds. Values must agree within
-# rtol 1e-5 + 1e-5 * max(|q|^2 + |x|^2).
+# Both sides add exact bf16 x bf16 products in f32 (the kernel on the tensor
+# cores), in different orders: an order changes a sum of D terms by at most
+# about D * 2^-24 of the sum of magnitudes, which |q|^2 + |x|^2 bounds.
+# Values must agree within rtol 1e-5 + 1e-5 * max(|q|^2 + |x|^2).
 VAL_RTOL, VAL_ATOL_SCALE = 1e-5, 1e-5
 
 
@@ -192,21 +197,27 @@ def compare_scan(dev: torch.device, name: str, kw):
         raise AssertionError(f"{name}: rows past n_valid survived")
     ms = cuda_ms(lambda: partial_min.partial_min_scan(**kw))
     plain_ms = cuda_ms(lambda: partial_min.partial_min_scan_ref(**kw))
-    log(f"kernel partial_min {name}: " + json.dumps({
-        "case": name, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-        "atol": atol, "id_mismatch": int(diff.sum())}))
-    return err, ms, plain_ms
+    b, d = kw["queries"].shape
+    n = kw["table"].shape[0]
+    bound, bound_by = partial_min.bound_ms(*partial_min.scan_cost(b, n, d))
+    # Context only, not the same function: the bf16 matmul that writes the
+    # [B, N] scores the scan never stores. The port never calls it.
+    q, tab = kw["queries"], kw["table"]
+    gemm_ms = cuda_ms(lambda: torch.matmul(q, tab.T))
+    torch.cuda.empty_cache()
+    out = {"case": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+           "gemm_ms": gemm_ms, "max_abs_err": err, "atol": atol,
+           "id_mismatch": int(diff.sum())}
+    log(f"kernel partial_min {name}: " + json.dumps(out))
+    return out
 
 
 def check_kernel(dev: torch.device, b: int, n: int, d: int):
-    """Kernel vs plain version per flat-serve case; returns (the max abs
-    error over all cases, {case: (kernel ms, plain ms)})."""
-    max_err, times = 0.0, {}
-    for name, kw in kernel_cases(dev, b, n, d):
-        err, ms, plain_ms = compare_scan(dev, name, kw)
-        max_err = max(max_err, err)
-        times[name] = (ms, plain_ms)
-    return max_err, times
+    """Kernel vs plain version per flat-serve case; returns {case: the
+    numbers of compare_scan}."""
+    return {name: compare_scan(dev, name, kw)
+            for name, kw in kernel_cases(dev, b, n, d)}
 
 
 def check_knn_kernel(dev: torch.device):
@@ -253,11 +264,20 @@ def check_gather(dev: torch.device):
         ms = cuda_ms(lambda: gather.gather_rows(tab, ids), inner=50)
         plain_ms = cuda_ms(lambda: gather.gather_rows_ref(tab, ids),
                            inner=50)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                     "table": list(shape), "dtype": str(dtype),
-                     "ids": n_ids, "row_bytes": k[0].numel() * k.element_size()}
+        # The library call: index_select on ids clamped beforehand.
+        ids_c = ids.clamp(0, GATHER_N - 1).long()
+        library_ms = cuda_ms(lambda: tab.index_select(0, ids_c), inner=50)
+        row_bytes = k[0].numel() * k.element_size()
+        bound, bound_by = partial_min.bound_ms(
+            0, gather.gather_cost(n_ids, row_bytes))
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+                     "max_abs_err": err, "table": list(shape),
+                     "dtype": str(dtype), "ids": n_ids,
+                     "row_bytes": row_bytes}
         log(f"kernel gather_rows {name}: " + json.dumps(out[name]))
-        del tab, ids, k, p
+        del tab, ids, ids_c, k, p
         torch.cuda.empty_cache()
     return out
 
@@ -875,15 +895,17 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log("ptxas: " + line.strip())
 
-    pm_err, pm_times = check_kernel(dev, KERNEL_B, KERNEL_N, KERNEL_D)
-    knn_err, knn_ms, knn_plain_ms = check_knn_kernel(dev)
+    pm_cases = check_kernel(dev, KERNEL_B, KERNEL_N, KERNEL_D)
+    knn = check_knn_kernel(dev)
     gather_cases = check_gather(dev)
     sl = run_slice(dev, SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH)
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
     log(f"graph: {json.dumps(gr)}")
-    main_pm = pm_times["l2_mask_nvalid"]
+    main_pm = pm_cases["l2_mask_nvalid"]
     trav = gather_cases["bf16_store"]
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",
+            "gemm_ms", "max_abs_err")
     print(json.dumps({"kernels": [
         {"name": "partial_min", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/partial_min.cu",
@@ -894,9 +916,13 @@ def main() -> int:
                       + gr["filtered"]["partial_min_launches"]
                       + gr["rest"]["partial_min_launches"]
                       + gr["rest"]["rebuild_partial_min_launches"]),
-         "max_abs_err": max(pm_err, knn_err),
-         "ms": main_pm[0], "plain_ms": main_pm[1],
-         "knn_block_ms": knn_ms, "knn_block_plain_ms": knn_plain_ms},
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in list(pm_cases.values()) + [knn]),
+         "ms": main_pm["ms"], "plain_ms": main_pm["plain_ms"],
+         "bound_ms": main_pm["bound_ms"], "bound_by": main_pm["bound_by"],
+         "library_ms": None, "pct_of_bound": main_pm["pct_of_bound"],
+         "gemm_ms": main_pm["gemm_ms"],
+         "knn_block": {k: knn[k] for k in keep}},
         {"name": "gather_rows", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/gather_rows.cu",
          "replaces": "benchmarks/gather_micro.py:30",
@@ -906,6 +932,9 @@ def main() -> int:
                       + gr["rest"]["gather_launches"]),
          "max_abs_err": max(c["max_abs_err"] for c in gather_cases.values()),
          "ms": trav["ms"], "plain_ms": trav["plain_ms"],
+         "bound_ms": trav["bound_ms"], "bound_by": trav["bound_by"],
+         "library_ms": trav["library_ms"],
+         "pct_of_bound": trav["pct_of_bound"],
          "cases": gather_cases}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,6 +150,66 @@ def test_kernel_matches_plain_version(cuda_device, metric, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [128, 8192])
+@pytest.mark.parametrize("d", [128, 256, 768])
+def test_tensor_core_scan_shapes(cuda_device, d, b):
+    """The bf16 scan at D = 128 and 256 (8,192-row tiles, query tile kept in
+    shared memory) and 768 (2,048-row tiles, query chunks streamed), two
+    table tiles, n_valid not a multiple of 128, a mask, and exclude_self
+    with q_base not a multiple of 128."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + b)
+    n = 2 * partial_min.pick_tile_c(d)
+    q_base = 300
+    x = torch.randn((n, d), generator=g, device=cuda_device)
+    mask = (torch.rand(n, generator=g, device=cuda_device) > 0.1).float()
+    rows = (q_base + torch.arange(b, device=cuda_device)) % n
+    q = x[rows] + 0.01 * torch.randn((b, d), generator=g, device=cuda_device)
+    tab = x.bfloat16()
+    vk, ik = _assert_scan_close(dict(
+        queries=q.bfloat16(), q_norms=(q * q).sum(1), q_base=q_base,
+        table=tab, norms=(tab.float() ** 2).sum(1),
+        metric=int(MetricType.EUCLIDEAN), n_valid=n - 77, exclude_self=True,
+        mask=mask))
+    assert vk.shape == (b, 2 * n // (partial_min.pick_tile_c(d) // 128))
+    fin = torch.isfinite(vk)
+    own = q_base + torch.arange(b, device=cuda_device)[:, None]
+    assert not bool(((ik == own) & fin).any())
+    assert not bool((mask[ik.long()][fin] == 0).any())
+    assert not bool((ik[fin] >= n - 77).any())
+
+
+@pytest.mark.gpu
+def test_kernel_masked_stripes_keep_stripe_zero_ids(cuda_device):
+    """Tile 0 keeps only stripe 0 (every second slot stays +inf with the
+    stripe-0 row), tile 1 is masked whole (both slots +inf, stripe-0 row),
+    and one stripe of tile 2 is masked whole; equal to the plain version
+    bit for bit on quarter-integer data."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n, d, b = 4 * 8192, 128, 256
+    x = ((torch.randn((n, d), generator=g, device=cuda_device) * 4).round()
+         .clamp(-16, 16) / 4)
+    mask = torch.ones(n, device=cuda_device)
+    mask[128:8192] = 0
+    mask[8192:16384] = 0
+    mask[16384 + 5 * 128:16384 + 6 * 128] = 0
+    q = x[:b].clone()
+    kw = dict(queries=q.bfloat16(), q_norms=(q * q).sum(1), q_base=0,
+              table=x.bfloat16(), norms=(x * x).sum(1),
+              metric=int(MetricType.EUCLIDEAN), n_valid=n, mask=mask)
+    vk, ik = partial_min.partial_min_scan(**kw)
+    vp, ip = partial_min.partial_min_scan_ref(**kw)
+    assert torch.equal(vk, vp) and torch.equal(ik, ip)
+    g_cols = n // 64
+    lanes = torch.arange(128, device=cuda_device, dtype=torch.int32)
+    assert bool(torch.isfinite(vk[:, :128]).all())
+    assert bool(torch.isinf(vk[:, g_cols:g_cols + 256]).all())
+    assert bool((ik[:, g_cols:g_cols + 128] == lanes).all())
+    assert bool(torch.isinf(vk[:, 128:256]).all())
+    assert bool((ik[:, 128:256] == 8192 + lanes).all())
+    assert bool((ik[:, g_cols + 128:g_cols + 256] == 8192 + lanes).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("metric", METRICS)
 def test_kernel_tie_rule_is_exact(cuda_device, metric):
     """Quarter-integer data make every score exact in f32 in any order, so

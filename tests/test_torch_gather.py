@@ -119,3 +119,19 @@ def test_gather_rejects_what_the_kernel_does_not_take(bad):
         tab = torch.zeros((0, 8))
     with pytest.raises(err):
         gather.gather_rows(tab, ids)
+
+
+@pytest.mark.parametrize("n_ids,row_bytes,want_bytes,want_ms", [
+    (196_608, 256, 101_449_728, 0.0303),   # bf16 [1M x 128] store rows
+    (8_192, 6_144, 100_696_064, 0.0301),   # int8 [1M x 6,144] fused rows
+    (8_192, 192, 3_178_496, 0.00095),      # int32 [1M x 48] adjacency
+])
+def test_gather_cost_and_bound(n_ids, row_bytes, want_bytes, want_ms):
+    """Bytes moved once each (ids, rows read, rows written) and the bound
+    at the H100's 3.35 TB/s, at the traversal's three gather shapes."""
+    from vectordb_tpu_torch.ops import partial_min
+    nbytes = gather.gather_cost(n_ids, row_bytes)
+    assert nbytes == want_bytes
+    ms, by = partial_min.bound_ms(0, nbytes)
+    assert by == "bytes"
+    assert ms == pytest.approx(want_ms, rel=0.02)

@@ -40,6 +40,7 @@ METRICS = [MetricType.EUCLIDEAN, MetricType.COSINE, MetricType.DOT_PRODUCT]
 @pytest.fixture(autouse=True)
 def _reset_port():
     saved_t, saved_j = dict(vars(torch_config)), dict(vars(jax_config))
+    tvdb.set_device("cpu")  # the CPU run of the port: plain versions
     yield
     tvdb._reset_for_tests()
     vars(torch_config).update(saved_t)

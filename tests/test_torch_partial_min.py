@@ -192,3 +192,86 @@ def test_fused_topk_exclude_self_matches_pallas(interpret_kernels):
     x = rng.normal(size=(n, d)).astype(np.float32)
     ids = _topk_both(x, x[:b], MetricType.EUCLIDEAN, 4, exclude_self=True)
     assert not (ids[:, 0] == np.arange(b)).any()
+
+
+@pytest.mark.parametrize("b,n,flops,mbytes,bound,by", [
+    # flat-serve: 5.50e11 FLOP on the tensor cores, 608 MB -> 0.18 ms
+    (8192, 262_144, 5.50e11, 608, 0.556, "operations"),
+    # one exact-KNN block: 2.75e11 FLOP, 545 MB -> 0.16 ms
+    (1024, 1_048_576, 2.75e11, 545, 0.278, "operations"),
+])
+def test_scan_cost_and_bound(b, n, flops, mbytes, bound, by):
+    f, nbytes = partial_min.scan_cost(b, n, 128)
+    assert f == 2 * b * n * 128
+    assert f == pytest.approx(flops, rel=0.01)
+    assert nbytes / 1e6 == pytest.approx(mbytes, rel=0.01)
+    ms, kind = partial_min.bound_ms(f, nbytes)
+    assert kind == by
+    assert ms == pytest.approx(bound, rel=0.01)
+    assert nbytes / partial_min.H100_HBM_BYTES_PER_S * 1e3 < ms
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_column_term(metric):
+    """|x|^2 for L2, 0 otherwise, +inf past n_valid and where masked."""
+    n = 300
+    norms = torch.arange(n, dtype=torch.float32) + 0.5
+    mask = torch.ones(n)
+    mask[7] = 0
+    t = partial_min.column_term(norms, mask, 290, int(metric))
+    bad = torch.zeros(n, dtype=torch.bool)
+    bad[7] = True
+    bad[290:] = True
+    assert torch.isinf(t[bad]).all() and torch.isfinite(t[~bad]).all()
+    want = norms if metric == MetricType.EUCLIDEAN else torch.zeros(n)
+    assert torch.equal(t[~bad], want[~bad])
+    assert torch.equal(partial_min.column_term(norms, None, n, int(metric)),
+                       want)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_plain_scan_on_column_term_matches_pallas(interpret_kernels, metric):
+    """The plain version scores base + column_term; with a mask, n_valid
+    not a multiple of 128 and exclude_self at once it equals the Pallas
+    kernel position by position (one 128-query tile, where the TPU's
+    i mod 128 diagonal is the whole batch's)."""
+    n, d, b, q_base = 16384, 128, 128, 8192 + 300
+    x, _ = _exact_data(int(metric) + 40, n, d, b)
+    q = x[q_base:q_base + b].copy()
+    mask = np.ones(n, np.float32)
+    mask[np.random.default_rng(6).random(n) < 0.2] = 0.0
+    jv, ji, tv, ti, atol = _both_scans(x, q, metric, q_base=q_base,
+                                       n_valid=n - 77, mask=mask,
+                                       exclude_self=True)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=atol)
+
+
+def _args(dtype=torch.bfloat16, b=128, d=128, n=8192, qdtype=None):
+    return (torch.zeros((b, d), dtype=qdtype or dtype),
+            torch.zeros((n, d), dtype=dtype), torch.zeros(b),
+            torch.zeros(n))
+
+
+@pytest.mark.parametrize("args,exc", [
+    (_args(torch.float16), TypeError),               # neither bf16 nor f32
+    (_args(qdtype=torch.float32), TypeError),        # queries' dtype
+    (_args(d=96), ValueError),                       # bf16: D % 64
+    (_args(b=64), ValueError),                       # bf16: B % 128
+    (_args(torch.float32, d=48), ValueError),        # f32: D % 32
+    (_args(torch.float32, b=32), ValueError),        # f32: B % 64
+])
+def test_kernel_argument_checks(args, exc):
+    """The wrapper's checks, callable on the CPU: what the kernel does not
+    take raises before any launch."""
+    with pytest.raises(exc):
+        partial_min.check_kernel_args(*args)
+
+
+@pytest.mark.parametrize("args", [
+    _args(), _args(d=192, b=256), _args(torch.float32, b=64, d=32)])
+def test_kernel_argument_checks_pass(args):
+    partial_min.check_kernel_args(*args)
+    q, t, qn, _ = args
+    with pytest.raises(ValueError):  # norms must be [N]
+        partial_min.check_kernel_args(q, t, qn, torch.zeros(5))

@@ -22,6 +22,7 @@ from vectordb_tpu.config import global_config as jax_config
 from vectordb_tpu.db_server import DBServer as JaxDBServer
 from vectordb_tpu.rest.server import RestServer as JaxRest
 from vectordb_tpu.services import EmbeddingService as JaxEmbedding
+import vectordb_tpu_torch as tvdb
 from vectordb_tpu_torch.config import global_config as torch_config
 from vectordb_tpu_torch.db_server import DBServer
 from vectordb_tpu_torch.rest.server import RestServer, create_server
@@ -113,6 +114,13 @@ class Both:
     def close(self):
         self.jax.db.stop()
         self.port.db.stop()
+
+
+@pytest.fixture(autouse=True)
+def _cpu_port():
+    tvdb.set_device("cpu")  # the CPU run of the port: plain versions
+    yield
+    tvdb._reset_for_tests()
 
 
 @pytest.fixture

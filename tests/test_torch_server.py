@@ -16,6 +16,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
+import torch
 
 import vectordb_tpu as jvdb
 import vectordb_tpu_torch as tvdb
@@ -43,6 +44,7 @@ SCHEMA = {
 @pytest.fixture(autouse=True)
 def _reset_port():
     saved = dict(vars(torch_config))
+    tvdb.set_device("cpu")  # the CPU run of the port: plain versions
     yield
     tvdb._reset_for_tests()
     vars(torch_config).update(saved)
@@ -59,23 +61,27 @@ def records(lo, hi, rng):
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], (8888, True, True, "http://localhost:8889")),
+    ([], (8888, True, True, "http://localhost:8889", "cuda")),
     (["-p", "1234", "-r", "false", "-l", "0"],
-     (1234, False, False, "http://localhost:8889")),
+     (1234, False, False, "http://localhost:8889", "cuda")),
     (["--port", "9", "--rebuild", "true", "--leader", "no",
       "--embedding_baseurl", "http://side:1"],
-     (9, True, False, "http://side:1")),
+     (9, True, False, "http://side:1", "cuda")),
     (["-e", "http://x:2", "-l", "TRUE", "-r", "False"],
-     (8888, False, True, "http://x:2")),
+     (8888, False, True, "http://x:2", "cuda")),
+    (["--device", "cpu"], (8888, True, True, "http://localhost:8889", "cpu")),
 ])
 def test_cli_flags(argv, want):
     a = parse_args(argv)
-    assert (a.port, a.rebuild, a.leader, a.embedding_baseurl) == want
+    assert (a.port, a.rebuild, a.leader, a.embedding_baseurl,
+            a.device) == want
 
 
 def test_cli_rejects_bad_port():
     with pytest.raises(SystemExit):
         parse_args(["-p", "eighty"])
+    with pytest.raises(SystemExit):
+        parse_args(["--device", "tpu"])
     assert [str2bool(v) for v in ("false", "0", "no", "1", "yes")] == [
         False, False, False, True, True]
 
@@ -89,8 +95,8 @@ def test_cli_serves_and_stops_on_signal(tmp_path, sig):
     with open(log, "w") as f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "vectordb_tpu_torch", "-p", "0",
-             "-r", "false"], stdout=f, stderr=subprocess.STDOUT, env=env,
-            cwd=str(tmp_path))
+             "-r", "false", "--device", "cpu"], stdout=f,
+            stderr=subprocess.STDOUT, env=env, cwd=str(tmp_path))
     try:
         port = None
         deadline = time.time() + 120
@@ -119,6 +125,35 @@ def test_cli_serves_and_stops_on_signal(tmp_path, sig):
     text = log.read_text()
     assert "serving device: cpu" in text
     assert "server stopped" in text
+
+
+def test_cli_refuses_to_start_without_a_card(tmp_path):
+    """Without a CUDA device and without --device cpu the server does not
+    fall back to the CPU: it exits 2 and names the flag. CUDA_VISIBLE_DEVICES
+    is emptied so that this holds on a machine with a card too."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "vectordb_tpu_torch", "-p", "0", "-r",
+         "false"], capture_output=True, text=True, env=env,
+        cwd=str(tmp_path), timeout=120)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert "listening" not in proc.stdout + proc.stderr
+
+
+def test_library_refuses_to_run_without_a_card(tmp_path, monkeypatch):
+    """The library raises without a CUDA device unless the CPU was asked
+    for with set_device("cpu"); it never picks the CPU by itself."""
+    tvdb._reset_for_tests()  # back to the default request: cuda
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="set_device"):
+        tvdb.load_db("x", str(tmp_path / "x"))
+    with pytest.raises(RuntimeError, match="set_device"):
+        DBServer()
+    with pytest.raises(ValueError):
+        tvdb.set_device("tpu")
+    tvdb.set_device("cpu")
+    assert tvdb.load_db("x", str(tmp_path / "x")) == 0
 
 
 # ---------------------------------------------------------------------------

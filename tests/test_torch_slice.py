@@ -32,6 +32,7 @@ METRICS = ["EUCLIDEAN", "COSINE", "DOT_PRODUCT"]
 @pytest.fixture(autouse=True)
 def _reset_port():
     saved_t, saved_j = dict(vars(torch_config)), dict(vars(jax_config))
+    tvdb.set_device("cpu")  # the CPU run of the port: plain versions
     for cfg in (torch_config, jax_config):
         cfg.query_group_size = 4
         cfg.flat_serve = "auto"

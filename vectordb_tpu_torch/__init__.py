@@ -14,6 +14,10 @@ raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
 
 A data directory written by either package opens in the other.
 
+The engine runs on the first CUDA device and raises when there is none;
+`set_device("cpu")` asks for the CPU, where every kernel runs its plain
+PyTorch version.
+
 This module exposes the reference's CPython-binding function API
 (reference engine bindings/python/interface.cpp): load_db / use_db /
 create_table / insert / delete_by_pk / query / drop_table / unload_db —
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+from ._device import set_device
 from .config import global_config
 from .db_server import DBServer
 from .errors import Status, VectorDBError
@@ -209,12 +214,14 @@ def update_config(cfg: Dict[str, Any]) -> int:
 
 
 def _reset_for_tests() -> None:
-    """Stop and drop the module-global engine (test isolation only)."""
+    """Stop and drop the module-global engine and ask for the CUDA device
+    again (test isolation only)."""
     global _db, _db_name
     if _db is not None:
         _db.stop()
     _db = None
     _db_name = ""
+    set_device("cuda")
 
 
 __all__ = [
@@ -224,5 +231,5 @@ __all__ = [
     "query", "hybrid_query", "tune_search", "get", "insert_columns",
     "drop_table", "unload_db", "statistics",
     "rebuild", "dump_db", "update_config", "export_reference_format",
-    "InitTableScale",
+    "InitTableScale", "set_device",
 ]

@@ -1,5 +1,5 @@
-"""Server entry point: `python -m vectordb_tpu_torch [-p PORT] [-r] [-l] [-e URL]`
-(counterpart of vectordb_tpu/__main__.py).
+"""Server entry point: `python -m vectordb_tpu_torch [-p PORT] [-r] [-l] [-e URL]
+[--device cuda|cpu]` (counterpart of vectordb_tpu/__main__.py).
 
 Mirrors the reference CLI (reference engine cmd/server/main.cpp:33-94):
   -p/--port               HTTP port (default 8888)
@@ -8,6 +8,10 @@ Mirrors the reference CLI (reference engine cmd/server/main.cpp:33-94):
   -l/--leader true|false  leader node (default true)
   -e/--embedding_baseurl  embedding sidecar base URL
                           (default http://localhost:8889)
+  --device cuda|cpu       the engine's device (default cuda). With cuda and
+                          no CUDA device the server exits 2 naming this
+                          flag; cpu serves from the CPU with every kernel's
+                          plain PyTorch version.
 
 HTTP requests are served from worker threads; the main thread runs the
 device executor loop, so device work is serialized like the reference's
@@ -25,6 +29,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ._device import DEVICES
+
 
 def str2bool(v: str) -> bool:
     return str(v).lower() not in ("false", "0", "no")
@@ -39,6 +45,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="run as the leader node")
     parser.add_argument("-e", "--embedding_baseurl", type=str,
                         default="http://localhost:8889")
+    parser.add_argument("--device", choices=DEVICES, default="cuda",
+                        help="the engine's device (cpu only when asked)")
     return parser.parse_args(argv)
 
 
@@ -52,24 +60,29 @@ def main(argv=None) -> int:
     # SIGUSR1 dumps all thread stacks to stderr (live-debug aid).
     faulthandler.register(signal.SIGUSR1, all_threads=True)
 
-    from ._device import default_device
+    import torch
+
+    from ._device import default_device, set_device
     from .db_server import DBServer
     from .logger import logger
     from .rest import create_server
     from .services import EmbeddingService
 
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("vectordb_tpu_torch: --device cuda (the default) but PyTorch "
+              "sees no CUDA device; pass --device cpu to serve from the CPU",
+              file=sys.stderr)
+        return 2
+    set_device(args.device)
     dev = default_device()
     if dev.type == "cuda":
-        import torch
-
         from . import _cuda_build
 
         _cuda_build.build_all()
         logger.info(f"serving device: {torch.cuda.get_device_name(dev)} "
                     f"({dev}), CUDA kernels built")
     else:
-        logger.info(f"serving device: {dev} (no CUDA device: kernels run "
-                    "their plain PyTorch versions)")
+        logger.info("serving device: cpu (--device cpu)")
 
     db = DBServer()
     db.inject_embedding_service(EmbeddingService(args.embedding_baseurl))

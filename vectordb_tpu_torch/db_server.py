@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ._device import default_device
 from .batcher import QueryBatcher
 from .catalog import Catalog
 from .config import global_config
@@ -36,6 +37,9 @@ from .schema import (DENSE_VECTOR_TYPES, INT_TYPES, FieldType,
 
 class DBServer:
     def __init__(self):
+        # The engine's device: raises here, before any table is opened,
+        # when there is no CUDA device and the CPU was not asked for.
+        default_device()
         self.catalog = Catalog()
         # All device work funnels through this executor (see executor.py);
         # with no loop running it executes inline on the calling thread.

@@ -48,6 +48,13 @@ def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
                          f"{table.device}")
 
 
+def gather_cost(n_ids: int, row_bytes: int) -> int:
+    """Bytes one gather must move, each counted once: the int32 ids read,
+    the rows read, the rows written. A gather does no arithmetic, so its
+    bound is these bytes at the HBM rate (partial_min.bound_ms(0, bytes))."""
+    return n_ids * (4 + 2 * row_bytes)
+
+
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table [N, ...] (contiguous, row a multiple of 4 bytes), ids int32 of
     any shape -> table[clamp(ids, 0, N - 1)] of shape ids.shape +

@@ -14,11 +14,14 @@ group j mod 128, survivor column t*128 + lane for tile t, best plane first
 and second plane after it, ties kept by the earlier stripe.
 
 `partial_min_scan` launches the hand-written CUDA kernel
-(csrc/partial_min.cu) for CUDA tensors and runs `partial_min_scan_ref`, its
-plain PyTorch version, for CPU tensors. One divergence from the TPU kernel
-is deliberate: with exclude_self it masks row q_base + i for query i of the
-whole batch, where the TPU kernel masks q_base + (i mod 128) in every
-128-query tile (correct only when B == 128).
+(csrc/partial_min.cu: bf16 on the tensor cores, f32 on the CUDA cores) for
+CUDA tensors and runs `partial_min_scan_ref`, its plain PyTorch version, for
+CPU tensors. Both score a row as the metric's base score plus
+`column_term`, which folds |x|^2 (L2), n_valid and the mask into one [N]
+vector. `scan_cost` gives the scan's FLOPs and bytes for its bound. One
+divergence from the TPU kernel is deliberate: with exclude_self it masks
+row q_base + i for query i of the whole batch, where the TPU kernel masks
+q_base + (i mod 128) in every 128-query tile (correct only when B == 128).
 """
 from __future__ import annotations
 
@@ -32,6 +35,12 @@ from ..schema import MetricType
 GROUP = 64       # columns folded into one survivor at D <= 256
 TILE_Q = 128     # query rows per tile (the batch must be a multiple)
 TILE_C = 8192    # table rows per tile at D <= 256
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W): the
+# bound of a kernel is the larger of its FLOPs at the bf16 tensor-core rate
+# and its bytes at the HBM rate.
+H100_BF16_FLOPS = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
 
 # Kernel launches since the last reset (CPU calls of the plain version are
 # not counted): a run reads it to show the main path went through the kernel.
@@ -65,6 +74,70 @@ def supports(n_pad: int, dim_padded: int, b: int,
 def survivor_width(n_pad: int, dim_padded: int) -> int:
     """Columns of the scan's output: best + second-best per fold group."""
     return 2 * (n_pad // (pick_tile_c(dim_padded) // 128))
+
+
+def column_term(norms: torch.Tensor, mask: Optional[torch.Tensor],
+                n_valid: int, metric: int) -> torch.Tensor:
+    """[N] f32 term added to every query's base score of a row: |x|^2 for
+    L2 and 0 for cosine and dot, +inf where the row is excluded (row >=
+    n_valid, or mask == 0). One add then applies the norm, n_valid and the
+    mask, in the kernel as in the plain version."""
+    n = norms.shape[0]
+    dev = norms.device
+    bad = torch.arange(n, device=dev) >= n_valid
+    if mask is not None:
+        bad |= mask.reshape(n).to(dev) == 0
+    base = (norms.float() if metric == int(MetricType.EUCLIDEAN)
+            else torch.zeros(n, dtype=torch.float32, device=dev))
+    return base.masked_fill(bad, float("inf")).contiguous()
+
+
+def scan_cost(b: int, n: int, d: int, tile_c: int = 0,
+              itemsize: int = 2) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one scan of B queries against N rows of D dims:
+    2*B*N*D for the product, and each byte counted once: queries and table
+    (`itemsize` bytes an element), q_norms, norms and mask (f32), and the
+    four [B, N/fold] survivor planes (f32 values, int32 ids). The TPU
+    kernel's cost_estimate counts the table once per 128-query tile; a
+    bound counts what the function must move."""
+    if tile_c <= 0:
+        tile_c = pick_tile_c(d)
+    gcols = n // (tile_c // 128)
+    flops = 2 * b * n * d
+    nbytes = ((b + n) * d * itemsize + b * 4 + 2 * n * 4
+              + 2 * b * gcols * (4 + 4))
+    return flops, nbytes
+
+
+def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
+    """Least time (ms) one H100 could take for `flops` bf16 tensor-core
+    FLOPs and `nbytes` of HBM traffic, and which of the two bounds it."""
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_kernel_args(queries: torch.Tensor, table: torch.Tensor,
+                      q_norms: torch.Tensor, norms: torch.Tensor) -> None:
+    """Raises on what the kernel does not take: a table neither bf16 nor
+    f32, queries in another dtype or width, D not a multiple of 64 (bf16:
+    one TMA box) or 32 (f32), B not a multiple of 128 (bf16) or 64 (f32),
+    q_norms not [B] or norms not [N]. Plain code: the CPU tests call it."""
+    b, d = queries.shape
+    n = table.shape[0]
+    if table.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"partial_min kernel takes bf16 or f32 tables, "
+                        f"got {table.dtype}")
+    if queries.dtype != table.dtype:
+        raise TypeError(f"queries ({queries.dtype}) must be in the table's "
+                        f"dtype ({table.dtype})")
+    dm, bm = (64, 128) if table.dtype == torch.bfloat16 else (32, 64)
+    if table.shape[1] != d or d % dm != 0 or b % bm != 0:
+        raise ValueError(f"partial_min kernel ({table.dtype}) needs D % {dm}"
+                         f" == 0 and B % {bm} == 0, got D={d}, B={b}")
+    if tuple(q_norms.shape) != (b,) or tuple(norms.shape) != (n,):
+        raise ValueError("partial_min kernel: q_norms must be [B] and "
+                         "norms [N]")
 
 
 def partial_min_scan(queries: torch.Tensor, q_norms: torch.Tensor,
@@ -106,8 +179,9 @@ def partial_min_scan_ref(queries: torch.Tensor, q_norms: torch.Tensor,
     """Plain PyTorch version of the scan, same output bit layout. Scores
     come from an f32 matmul of the upcast operands (bf16 products are exact
     in f32; TF32 stays off), so the kernel and this version differ only in
-    summation order. Queries go in chunks so the [chunk, N] score block
-    bounds memory."""
+    summation order. A score is the metric's base score (|q|^2 - 2 q.x,
+    1 - q.x or -q.x) plus column_term, in the kernel's order. Queries go in
+    chunks so the [chunk, N] score block bounds memory."""
     b, d = queries.shape
     n = table.shape[0]
     dev = table.device
@@ -116,11 +190,7 @@ def partial_min_scan_ref(queries: torch.Tensor, q_norms: torch.Tensor,
     fold = tile_c // 128
     tiles = n // tile_c
     tab = table.float()
-    nrm = norms.float()
-    cols = torch.arange(n, device=dev)
-    bad = cols >= n_valid
-    if mask is not None:
-        bad |= mask.reshape(n) == 0
+    term = column_term(norms, mask, n_valid, metric)
     stripe = torch.arange(fold, dtype=torch.int32, device=dev).view(
         1, 1, fold, 1)
     # Global row of (tile t, lane) in stripe 0; stripe s adds s*128.
@@ -133,12 +203,12 @@ def partial_min_scan_ref(queries: torch.Tensor, q_norms: torch.Tensor,
         q = queries[s:e].float()
         ip = q @ tab.T
         if metric == int(MetricType.EUCLIDEAN):
-            sc = q_norms[s:e].float()[:, None] - 2.0 * ip + nrm[None, :]
+            sc = q_norms[s:e].float()[:, None] - 2.0 * ip
         elif metric == int(MetricType.COSINE):
             sc = 1.0 - ip
         else:
             sc = -ip
-        sc.masked_fill_(bad[None, :], float("inf"))
+        sc += term[None, :]
         if exclude_self:
             rows = int(q_base) + torch.arange(s, e, device=dev)
             hit = (rows >= 0) & (rows < n)
@@ -170,42 +240,32 @@ def _launch(queries, q_norms, q_base, table, norms, metric, n_valid,
 
     b, d = queries.shape
     n = table.shape[0]
-    if table.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"partial_min kernel takes bf16 or f32 tables, "
-                        f"got {table.dtype}")
-    if queries.dtype != table.dtype:
-        raise TypeError(f"queries ({queries.dtype}) must be in the table's "
-                        f"dtype ({table.dtype})")
-    if d % 32 != 0 or b % 64 != 0:
-        raise ValueError(f"partial_min kernel needs D % 32 == 0 and "
-                         f"B % 64 == 0, got D={d}, B={b}")
+    check_kernel_args(queries, table, q_norms, norms)
     dev = table.device
     q_norms = q_norms.to(device=dev, dtype=torch.float32).contiguous()
     norms = norms.to(device=dev, dtype=torch.float32).contiguous()
     mask = mask.to(device=dev, dtype=torch.float32).reshape(n).contiguous()
+    term = column_term(norms, mask, n_valid, metric)
     queries = queries.contiguous()
     table = table.contiguous()
     for name, t in (("queries", queries), ("table", table)):
         if t.device != dev or t.data_ptr() % 16 != 0:
             raise ValueError(f"partial_min kernel: {name} must be a "
                              f"16-byte aligned tensor on {dev}")
-    if q_norms.shape != (b,) or norms.shape != (n,):
-        raise ValueError("partial_min kernel: q_norms must be [B] and "
-                         "norms [N]")
     gcols = n // (tile_c // 128)
     vals = torch.empty((b, 2 * gcols), dtype=torch.float32, device=dev)
     ids = torch.empty((b, 2 * gcols), dtype=torch.int32, device=dev)
     lib = _cuda_build.load("partial_min")
     fn = lib.vdb_partial_min
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(queries.data_ptr(), q_norms.data_ptr(), table.data_ptr(),
-                norms.data_ptr(), mask.data_ptr(), vals.data_ptr(),
-                ids.data_ptr(), b, n, d, tile_c, n_valid, metric,
-                int(exclude_self), q_base,
+                norms.data_ptr(), mask.data_ptr(), term.data_ptr(),
+                vals.data_ptr(), ids.data_ptr(), b, n, d, tile_c, n_valid,
+                metric, int(exclude_self), q_base,
                 int(table.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"partial_min kernel launch failed: CUDA error "
