@@ -2,19 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from vectordb_tpu_torch/csrc (one nvcc each, in
-parallel) and holds each against its plain PyTorch version on the card:
-the partial-min scan at the flat-serve shape (B = 8192 queries, N = 262,144
-rows, D = 128, bf16) and at the exact-KNN shape (B = 1,024, N = 1,048,576,
-exclude_self, n_valid); the row gather, bit for bit, at the traversal's
-shapes (bf16 store rows, int8 fused rows, int32 adjacency rows). Each case
-prints its time beside its bound on the H100 (bytes moved once each at
-3.35 TB/s, FLOPs at the 989 TFLOP/s bf16 tensor-core rate; the share of
-the bound), the plain version's time, and a yardstick it is never
-replaced by: index_select on clamped ids for the gather, and for the scan
-the bf16 matmul that writes the [B, N] scores the scan never stores. Then it
-drives the port's paths, each with the launch counts set to 0 just before
-and read just after:
+Builds both CUDA libraries from vectordb_tpu_torch/csrc (the partial-min
+kernel for ctypes, the gather kernel with its PyTorch operator; one nvcc
+each, in parallel) and holds each kernel against its plain PyTorch version
+on the card: the partial-min scan at the flat-serve shape (B = 8192
+queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
+(B = 1,024, N = 1,048,576, exclude_self, n_valid); the row gather, bit for
+bit, at every row width the main path gathers (gather.MAIN_PATH_SHAPES:
+bf16 store rows, int8 fused rows, int32 adjacency rows, f32 re-rank rows,
+f32 scalars, the build's int8 store rows). Each case prints its time beside its bound on the H100
+(bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
+tensor-core rate; the share of the bound), the plain version's time, and a
+yardstick it is never replaced by: index_select on clamped ids for the
+gather (with the host µs a call of both), and for the scan the bf16
+matmul that writes the [B, N] scores the scan never stores. Then it drives
+the port's paths, each with the launch counts set to 0 just before and
+read just after (gathers also by row width):
   - flat-serve: a 250,000 x 128 clustered table, single queries through
     vdb.query, 16,384 queries through Table.grouped_dense_search, then the
     same with a device filter keeping half the rows (partial-min kernel
@@ -24,7 +27,8 @@ and read just after:
     partial-min kernel, pruning, auto-tune), single queries through
     vdb.query, 16,384 grouped queries with FusedTraversal auto and off and
     with the device filter `cat < 5` (traversal gathers through the
-    row-gather kernel);
+    row-gather kernel), then one grouped program and 20 single queries
+    under torch.profiler (device time, the gather's share, idle share);
   - REST in-process over that database: 2,048 single queries from 16
     client threads over four filters (none, `cat < 5`, `price > 80.0`,
     `price < 5.0`), an insert of 2,048 rows served from the flat tail,
@@ -67,12 +71,6 @@ KERNEL_B, KERNEL_N, KERNEL_D = 8192, 262144, 128
 KNN_B, KNN_N, KNN_N_VALID, KNN_Q_BASE = 1024, 1_048_576, 1_000_000, 4096
 SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH = 250_000, 128, 16_384, 2048
 GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH = 1_000_000, 128, 16_384, 2048
-# Row-gather shapes of the 1M-row traversal: (name, dtype, row shape,
-# number of ids). 196,608 ids = 2,048 queries x a compacted 96 candidates.
-GATHER_N = 1_048_576
-GATHER_CASES = (("bf16_store", torch.bfloat16, (128,), 196_608),
-                ("int8_fused", torch.int8, (48 * 128,), 8_192),
-                ("int32_adjacency", torch.int32, (48,), 8_192))
 RECALL_FLOOR = 0.99
 # Filtered queries that the graph serves with a widened beam (the JAX
 # package's selectivity rule, not retuned) are held to this floor.
@@ -96,24 +94,96 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def stream_ms(call, inner: int = 50) -> float:
+    """ms of one call from a stream: CUDA events around `inner`
+    back-to-back calls, over `inner`, so a call shorter than its launch is
+    timed from a full queue (its figure is then the host's launch rate)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(inner):
+        call()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / inner
+
+
+def host_us(call, calls: int = 1000) -> float:
+    """Host µs of one call: the wall of `calls` back-to-back calls with no
+    sync, over `calls`. Where a call's device time is longer, the queue
+    fills and this is the device's time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def in_turns(calls: dict, sample, rounds: int) -> dict:
+    """{name: median of `rounds` samples of sample(call)}: every round takes
+    one sample of each call in turn (after one warm-up call each), so a
+    drift in the host's or the card's speed falls on all of them alike."""
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    got = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, call in calls.items():
+            got[name].append(sample(call))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
 def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
-    """Median device time of fn() over `reps` samples after one warm-up;
-    a sample times `inner` back-to-back calls and divides, so a kernel
-    shorter than its launch is timed from a full queue (for such a kernel
-    the figure is still bounded below by the host's launch rate)."""
+    """Median of `reps` samples of stream_ms after one warm-up."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
+    return statistics.median(stream_ms(fn, inner) for _ in range(reps))
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0, just before a phase."""
+    partial_min.reset_launches()
+    gather.reset_launches()
+
+
+def read_counts() -> dict:
+    """The launch counts since reset_counts(), just after a phase."""
+    return {"partial_min": partial_min.launches, "gather": gather.launches,
+            "gather_by_row_bytes": dict(gather.launches_by_row_bytes)}
+
+
+def device_profile(fn) -> dict:
+    """fn() under torch.profiler: its wall, the device time of every kernel
+    and copy, the gather kernel's part of it, and the device's idle share
+    of the wall (the profiler's own host cost counts as idle). The share is
+    not clamped: kernels that overlapped on several streams would count
+    twice and show as a negative share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = gather_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        device_us += us
+        if "gather_rows" in ev.key:
+            gather_us += us
+    return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
+            "gather_ms": gather_us / 1e3,
+            "gather_share": gather_us / device_us if device_us else 0.0,
+            "idle_share": 1.0 - device_us / 1e3 / wall_ms}
 
 
 def make_clustered(n: int, dim: int, n_queries: int, seed: int = 0,
@@ -239,19 +309,19 @@ def check_knn_kernel(dev: torch.device):
 
 
 def check_gather(dev: torch.device):
-    """gather_rows (the kernel) against gather_rows_ref, bit for bit, at the
-    traversal's shapes; ids include -1 and ids past the end (clamped).
-    Returns {case: {ms, plain_ms, max_abs_err, ...}}."""
+    """gather_rows (the kernel) against gather_rows_ref, bit for bit, at
+    every row width the main path gathers; ids include -1 and ids past the
+    end (clamped). Returns {case: {ms, plain_ms, library_ms, host_us, ...}}."""
     g = torch.Generator(device=dev).manual_seed(2)
     out = {}
-    for name, dtype, row, n_ids in GATHER_CASES:
-        shape = (GATHER_N,) + row
+    for name, dtype, shape, n_ids in gather.MAIN_PATH_SHAPES:
+        n = shape[0]
         if dtype.is_floating_point:
             tab = torch.randn(shape, generator=g, device=dev).to(dtype)
         else:
             tab = torch.randint(-100, 100, shape, generator=g, device=dev,
                                 dtype=dtype)
-        ids = torch.randint(-2, GATHER_N + 2, (n_ids,), generator=g,
+        ids = torch.randint(-2, n + 2, (n_ids,), generator=g,
                             device=dev, dtype=torch.int32)
         k = gather.gather_rows(tab, ids)
         p = gather.gather_rows_ref(tab, ids)
@@ -261,23 +331,26 @@ def check_gather(dev: torch.device):
             raise AssertionError(f"gather {name}: kernel differs from the "
                                  "plain version")
         err = float((k.double() - p.double()).abs().max())
-        ms = cuda_ms(lambda: gather.gather_rows(tab, ids), inner=50)
-        plain_ms = cuda_ms(lambda: gather.gather_rows_ref(tab, ids),
-                           inner=50)
-        # The library call: index_select on ids clamped beforehand.
-        ids_c = ids.clamp(0, GATHER_N - 1).long()
-        library_ms = cuda_ms(lambda: tab.index_select(0, ids_c), inner=50)
         row_bytes = k[0].numel() * k.element_size()
+        del k, p
+        # The library call: index_select on ids clamped beforehand.
+        ids_c = ids.clamp(0, n - 1).long()
+        calls = {"ms": lambda: gather.gather_rows(tab, ids),
+                 "plain_ms": lambda: gather.gather_rows_ref(tab, ids),
+                 "library_ms": lambda: tab.index_select(0, ids_c)}
+        t = in_turns(calls, stream_ms, rounds=7)
+        t.update(in_turns({"host_us": calls["ms"],
+                           "library_host_us": calls["library_ms"]},
+                          host_us, rounds=5))
         bound, bound_by = partial_min.bound_ms(
             0, gather.gather_cost(n_ids, row_bytes))
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+        out[name] = {**t, "bound_ms": bound, "bound_by": bound_by,
+                     "pct_of_bound": 100.0 * bound / t["ms"],
                      "max_abs_err": err, "table": list(shape),
                      "dtype": str(dtype), "ids": n_ids,
                      "row_bytes": row_bytes}
         log(f"kernel gather_rows {name}: " + json.dumps(out[name]))
-        del tab, ids, ids_c, k, p
+        del tab, ids, ids_c, calls
         torch.cuda.empty_cache()
     return out
 
@@ -320,6 +393,7 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         # Single queries through the public API.
         probe = [42, 7, n // 2, n - 1]
         want = oracle_top10(x, x[probe])
+        reset_counts()
         for i, row in enumerate(probe):
             code, hits = vdb.query("docs", "Emb", x[row].tolist(),
                                    ["ID", "Doc"], 10, "", True)
@@ -331,6 +405,7 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         code, hits = vdb.query("docs", "Emb", x[row].tolist(), ["ID"], 10,
                                f"ID < {lo}", True)
         want_f = oracle_top10(x[:lo], x[row:row + 1])[0]
+        single_counts = read_counts()
         got_f = [h["ID"] for h in hits]
         if code != 0 or set(got_f) != set(want_f.tolist()):
             raise AssertionError(f"filtered query: {got_f} vs {want_f}")
@@ -348,17 +423,15 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
                                    MetricType.EUCLIDEAN, 10, batch=batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        partial_min.reset_launches()
-        gather.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         ids, dists = table.grouped_dense_search(
             "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = partial_min.launches
-        gather_launches = gather.launches
+        counts = read_counts()
         peak = torch.cuda.max_memory_allocated(dev)
-        if launches <= 0:
+        if counts["partial_min"] <= 0:
             raise AssertionError("grouped search never launched the kernel")
         if ids.shape != (n_q, 10) or not np.isfinite(dists).all():
             raise AssertionError(f"grouped result shape {ids.shape}")
@@ -380,16 +453,15 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         filtered = grouped_filtered(
             table, f"ID < {half}", queries, valid, batch, x, keep,
             oracle_top10(x[:half], queries[:min(1024, n_q)]), RECALL_FLOOR)
-        if filtered["partial_min_launches"] <= 0:
+        if filtered["counts"]["partial_min"] <= 0:
             raise AssertionError("filtered flat-serve never launched "
                                  "partial-min")
         log(f"slice filtered grouped: {json.dumps(filtered)}")
         vdb.unload_db("smoke")
     return {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
             "group": 4, "recall_at_10": recall, "qps": n_q / wall,
-            "wall_s": wall, "launches": launches,
-            "gather_launches": gather_launches, "peak_bytes": peak,
-            "ingest_s": ingest_s, "filtered": filtered}
+            "wall_s": wall, "counts": counts, "single_counts": single_counts,
+            "peak_bytes": peak, "ingest_s": ingest_s, "filtered": filtered}
 
 
 def device_filter(table, flt: str):
@@ -413,8 +485,7 @@ def grouped_filtered(table, flt: str, queries, valid, batch: int,
                                MetricType.EUCLIDEAN, 10, batch=batch,
                                mask_cacheable=True, filter_ctx=ctx)
     torch.cuda.synchronize()
-    partial_min.reset_launches()
-    gather.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     ids, dists = table.grouped_dense_search(
         "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch,
@@ -423,8 +494,7 @@ def grouped_filtered(table, flt: str, queries, valid, batch: int,
     wall = time.perf_counter() - t0
     out = {"filter": flt, "selectivity": float(keep.mean()),
            "qps": queries.shape[0] / wall, "wall_s": wall,
-           "partial_min_launches": partial_min.launches,
-           "gather_launches": gather.launches}
+           "counts": read_counts()}
     if ids.shape != (queries.shape[0], 10) or not np.isfinite(dists).all():
         raise AssertionError(f"{flt}: result shape {ids.shape}")
     if not keep[ids].all():
@@ -495,19 +565,17 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         # Build: the counts at 0 just before rebuild(), read just after.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        partial_min.reset_launches()
-        gather.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         code = vdb.rebuild()
         torch.cuda.synchronize()
         out["rebuild_s"] = time.perf_counter() - t0
-        out["build_partial_min_launches"] = partial_min.launches
-        out["build_gather_launches"] = gather.launches
+        out["build_counts"] = read_counts()
         out["rebuild_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         graph = table.graphs["Emb"]
         if code != 0 or graph is None or graph.num_rows != n:
             raise AssertionError(f"rebuild: code {code}, graph {graph}")
-        if partial_min.launches <= 0:
+        if out["build_counts"]["partial_min"] <= 0:
             raise AssertionError("the build never launched partial-min")
         out["build_phase_s"] = graph.build_seconds
         out["tuned"] = {k: table._tuned_report["Emb"][k]
@@ -521,6 +589,7 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         x_dev = torch.from_numpy(x).to(dev)
         probe = [42, 7, n // 2, n - 1]
         want = oracle_top10_gpu(x_dev, x, x[probe])
+        reset_counts()
         for i, row in enumerate(probe):
             code, hits = vdb.query("docs", "Emb", x[row].tolist(), ["ID"],
                                    10, "", True)
@@ -535,6 +604,7 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
             vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10, "",
                       True)
             lat.append(time.perf_counter() - t0)
+        out["single_counts"] = read_counts()
         lat = np.asarray(lat[20:]) * 1e3
         out["single_ms"] = {"p50": float(np.percentile(lat, 50)),
                             "p90": float(np.percentile(lat, 90)),
@@ -563,18 +633,15 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
                                        MetricType.EUCLIDEAN, 10, batch=batch)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            partial_min.reset_launches()
-            gather.reset_launches()
+            reset_counts()
             t0 = time.perf_counter()
             ids, dists = table.grouped_dense_search(
                 "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            r = {"qps": n_q / wall, "wall_s": wall,
-                 "gather_launches": gather.launches,
-                 "partial_min_launches": partial_min.launches,
+            r = {"qps": n_q / wall, "wall_s": wall, "counts": read_counts(),
                  "peak_bytes": torch.cuda.max_memory_allocated(dev)}
-            if r["gather_launches"] <= 0:
+            if r["counts"]["gather"] <= 0:
                 raise AssertionError(f"traversal ({mode}) never launched "
                                      "the gather kernel")
             if ids.shape != (n_q, 10) or not np.isfinite(dists).all():
@@ -598,10 +665,21 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         out["filtered"] = grouped_filtered(
             table, "cat < 5", queries, valid, batch, x, keep_cat, want_cat,
             WIDENED_RECALL_FLOOR)
-        if out["filtered"]["gather_launches"] <= 0:
+        if out["filtered"]["counts"]["gather"] <= 0:
             raise AssertionError("filtered grouped graph pass never "
                                  "launched the gather kernel")
         log(f"graph filtered grouped: {json.dumps(out['filtered'])}")
+
+        # Where the device time goes (FusedTraversal auto): one grouped
+        # program of 4 x batch queries and 20 single queries, profiled.
+        out["profile"] = {
+            "grouped": device_profile(lambda: table.grouped_dense_search(
+                "Emb", queries[:batch * 4], valid, MetricType.EUCLIDEAN, 10,
+                batch=batch)),
+            "single": device_profile(lambda: [
+                vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10, "",
+                          True) for i in range(20)])}
+        log(f"graph profile: {json.dumps(out['profile'])}")
 
         out["rest"], x_new = run_rest(table, x, queries, cat, price,
                                       rest_wants)
@@ -694,21 +772,19 @@ def run_rest(table, x: np.ndarray, queries: np.ndarray, cat: np.ndarray,
         threads = [threading.Thread(target=client, args=(t,))
                    for t in range(REST_CLIENTS)]
         torch.cuda.synchronize()
-        partial_min.reset_launches()
-        gather.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        out["partial_min_launches"] = partial_min.launches
-        out["gather_launches"] = gather.launches
+        out["counts"] = read_counts()
         if errors or any(t.is_alive() for t in threads):
             raise AssertionError(f"REST clients failed: {errors[:3]}")
         out["qps"] = REST_QUERIES / wall
         out["wall_s"] = wall
-        if out["gather_launches"] <= 0:
+        if out["counts"]["gather"] <= 0:
             raise AssertionError("REST queries never launched the gather "
                                  "kernel")
         out["filters"] = {}
@@ -754,6 +830,8 @@ def run_rest(table, x: np.ndarray, queries: np.ndarray, cat: np.ndarray,
             size=(REST_INSERT, x.shape[1]))).astype(np.float32)
         data = [{"ID": n + j, "cat": j % 10, "price": float(j % 100),
                  "Emb": x_new[j].tolist()} for j in range(REST_INSERT)]
+        torch.cuda.synchronize()
+        reset_counts()
         st, body, secs = _post(conn, "/api/graph/data/insert",
                                {"table": "docs", "data": data})
         if st != 200 or body["result"]["inserted"] != REST_INSERT:
@@ -766,21 +844,21 @@ def run_rest(table, x: np.ndarray, queries: np.ndarray, cat: np.ndarray,
             if st != 200 or body["result"][0]["ID"] != n + j:
                 raise AssertionError(f"tail query of new row {n + j}: "
                                      f"{st} {body}")
+        torch.cuda.synchronize()
+        out["insert_counts"] = read_counts()
 
         # POST /api/rebuild: DBServer.rebuild, as the rebuild thread calls
         # it; the graph then covers every row.
         torch.cuda.synchronize()
-        partial_min.reset_launches()
-        gather.reset_launches()
+        reset_counts()
         st, body, secs = _post(conn, "/api/rebuild")
         torch.cuda.synchronize()
         out["rebuild_s"] = secs
-        out["rebuild_partial_min_launches"] = partial_min.launches
-        out["rebuild_gather_launches"] = gather.launches
+        out["rebuild_counts"] = read_counts()
         graph = table.graphs["Emb"]
         if st != 200 or graph is None or graph.num_rows != n + REST_INSERT:
             raise AssertionError(f"REST rebuild: {st} {body}")
-        if partial_min.launches <= 0:
+        if out["rebuild_counts"]["partial_min"] <= 0:
             raise AssertionError("REST rebuild never launched partial-min")
         st, body, _ = _post(conn, path, _query_body(x_new[1], ""))
         if st != 200 or body["result"][0]["ID"] != n + 1:
@@ -902,6 +980,24 @@ def main() -> int:
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
     log(f"graph: {json.dumps(gr)}")
+    # Launch counts of every main-path phase (the CLI's child process
+    # aside), and the gathers by the bytes of a table row.
+    phases = {"slice_single": sl["single_counts"],
+              "slice_grouped": sl["counts"],
+              "slice_filtered": sl["filtered"]["counts"],
+              "graph_build": gr["build_counts"],
+              "graph_single": gr["single_counts"],
+              **{f"graph_grouped_{mode}": r["counts"]
+                 for mode, r in gr["grouped"].items()},
+              "graph_filtered": gr["filtered"]["counts"],
+              "rest_queries": gr["rest"]["counts"],
+              "rest_insert": gr["rest"]["insert_counts"],
+              "rest_rebuild": gr["rest"]["rebuild_counts"]}
+    by_width = {}
+    for c in phases.values():
+        for rb, k in c["gather_by_row_bytes"].items():
+            by_width[rb] = by_width.get(rb, 0) + k
+    log(f"launches by phase: {json.dumps(phases)}")
     main_pm = pm_cases["l2_mask_nvalid"]
     trav = gather_cases["bf16_store"]
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",
@@ -910,12 +1006,7 @@ def main() -> int:
         {"name": "partial_min", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/partial_min.cu",
          "replaces": "vectordb_tpu/ops/pallas_topk.py:45",
-         "launches": (sl["launches"]
-                      + sl["filtered"]["partial_min_launches"]
-                      + gr["build_partial_min_launches"]
-                      + gr["filtered"]["partial_min_launches"]
-                      + gr["rest"]["partial_min_launches"]
-                      + gr["rest"]["rebuild_partial_min_launches"]),
+         "launches": sum(c["partial_min"] for c in phases.values()),
          "max_abs_err": max(c["max_abs_err"]
                             for c in list(pm_cases.values()) + [knn]),
          "ms": main_pm["ms"], "plain_ms": main_pm["plain_ms"],
@@ -925,11 +1016,10 @@ def main() -> int:
          "knn_block": {k: knn[k] for k in keep}},
         {"name": "gather_rows", "route": "cuda",
          "source": "vectordb_tpu_torch/csrc/gather_rows.cu",
+         "binding": "vectordb_tpu_torch/csrc/gather_rows_op.cpp",
          "replaces": "benchmarks/gather_micro.py:30",
-         "launches": (sum(r["gather_launches"]
-                          for r in gr["grouped"].values())
-                      + gr["filtered"]["gather_launches"]
-                      + gr["rest"]["gather_launches"]),
+         "launches": sum(c["gather"] for c in phases.values()),
+         "launches_by_row_bytes": by_width,
          "max_abs_err": max(c["max_abs_err"] for c in gather_cases.values()),
          "ms": trav["ms"], "plain_ms": trav["plain_ms"],
          "bound_ms": trav["bound_ms"], "bound_by": trav["bound_by"],

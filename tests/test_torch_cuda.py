@@ -311,11 +311,12 @@ def test_grouped_search_goes_through_kernel(cuda_device, tmp_path):
 @pytest.mark.parametrize("dtype,row", [
     (torch.bfloat16, (128,)), (torch.int32, (48,)), (torch.int32, (64,)),
     (torch.int8, (48 * 128,)), (torch.float32, (128,)), (torch.float32, ()),
-    (torch.int32, (3,))])
+    (torch.int32, (3,)), (torch.int32, (2,)), (torch.bfloat16, (4,)),
+    (torch.float32, (6,))])
 def test_gather_kernel_is_bit_exact(cuda_device, dtype, row):
-    """Every row width the traversal uses, the 4-byte scalars and a row of
-    12 bytes (the 4-byte-word path); ids include -1 and ids past the end,
-    which clamp."""
+    """Every row width the traversal uses, the 4-byte scalars, rows of 12
+    bytes (the 4-byte vector path) and of 8 and 24 bytes (the 8-byte
+    path); ids include -1 and ids past the end, which clamp."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     n = 5000
     if dtype.is_floating_point:
@@ -336,6 +337,124 @@ def test_gather_kernel_is_bit_exact(cuda_device, dtype, row):
     assert torch.equal(ref, tab[ids.clamp(0, n - 1).long()])
 
 
+def _random_table(dev, dtype, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    return torch.randint(-100, 100, shape, generator=g, device=dev,
+                         dtype=dtype)
+
+
+def _assert_gather_exact(tab, ids):
+    out = gather.gather_rows(tab, ids)
+    ref = gather.gather_rows_ref(tab, ids)
+    torch.cuda.synchronize()
+    assert out.shape == ids.shape + tab.shape[1:]
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,row", [(torch.bfloat16, (128,)),
+                                       (torch.float32, ())])
+def test_gather_kernel_many_passes_of_the_grid(cuda_device, dtype, row):
+    """A gather of millions of vectors: 4 x what the card holds in flight
+    at once (SMs x 2,048 threads x 8 vectors, the most any path keeps a
+    thread), so blocks run in many waves."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tab = _random_table(cuda_device, dtype, (100_000,) + row, seed=5)
+    vecs_per_row = max(1, gather._row_bytes(tab) // 16)
+    n_ids = 4 * sms * 2048 * 8 // vecs_per_row + 77
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    ids = torch.randint(-3, 100_003, (n_ids,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    _assert_gather_exact(tab, ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,row,offset", [
+    (torch.float32, (), 1),     # 4-byte rows, pointer 4 bytes past 16
+    (torch.float32, (2,), 2),   # 8-byte rows, pointer 8 bytes past 16
+    (torch.float32, (4,), 1),   # 16-byte rows, pointer 4 bytes past 16
+    (torch.int32, (64,), 3)])   # 256-byte rows, pointer 12 bytes past 16
+def test_gather_kernel_on_unaligned_tables(cuda_device, dtype, row, offset):
+    """A table that starts inside a buffer (as a slice from row 1 does)
+    takes the narrower vector path that its pointer allows."""
+    n = 3000
+    width = int(np.prod(row)) if row else 1
+    flat = _random_table(cuda_device, dtype, ((n + 1) * width,), seed=7)
+    tab = flat[offset:offset + n * width].view((n,) + row)
+    assert tab.is_contiguous() and tab.data_ptr() % 16 != 0
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    ids = torch.randint(-2, n + 2, (4097,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    _assert_gather_exact(tab, ids)
+
+
+@pytest.mark.gpu
+def test_gather_counts_launches_by_row_width(cuda_device):
+    """One launch a call, under the bytes of a table row; zero ids launch
+    nothing and count nothing, and keep the shape (scalars included)."""
+    tab = _random_table(cuda_device, torch.int32, (500, 48), seed=9)
+    scal = _random_table(cuda_device, torch.float32, (500,), seed=10)
+    ids = torch.arange(-1, 40, device=cuda_device, dtype=torch.int32)
+    gather.reset_launches()
+    gather.gather_rows(tab, ids)
+    gather.gather_rows(tab, ids.view(1, -1))
+    gather.gather_rows(scal, ids)
+    assert gather.launches == 3
+    assert gather.launches_by_row_bytes == {192: 2, 4: 1}
+    none = torch.zeros((0, 4), device=cuda_device, dtype=torch.int32)
+    assert gather.gather_rows(tab, none).shape == (0, 4, 48)
+    assert gather.gather_rows(scal, none[:, 0]).shape == (0,)
+    assert gather.launches == 3
+    assert gather.launches_by_row_bytes == {192: 2, 4: 1}
+
+
+@pytest.mark.gpu
+def test_gather_kernel_on_a_device_other_than_the_current(cuda_device):
+    """The operator launches on the table's card, on that card's current
+    stream, and leaves the current device as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    tab = _random_table(dev1, torch.bfloat16, (2000, 128), seed=11)
+    ids = torch.randint(-2, 2002, (999,), device=dev1, dtype=torch.int32)
+    ref = gather.gather_rows_ref(tab, ids)
+    side = torch.cuda.Stream(device=dev1)
+    side.wait_stream(torch.cuda.current_stream(dev1))
+    with torch.cuda.device(0):
+        out = gather.gather_rows(tab, ids)
+        assert torch.cuda.current_device() == 0
+        with torch.cuda.stream(side):  # makes cuda:1 current
+            torch.cuda.set_device(0)
+            assert torch.cuda.current_stream(dev1) == side
+            out_side = gather.gather_rows(tab, ids)
+            assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev1)
+    for o in (out, out_side):
+        assert o.device == dev1
+        assert torch.equal(o.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_gather_raises_when_the_operator_does_not_load(cuda_device,
+                                                       monkeypatch,
+                                                       tmp_path):
+    """No fallback: on a CUDA table a library that does not load raises;
+    the plain version does not run instead."""
+    from vectordb_tpu_torch import _cuda_build
+
+    bad = tmp_path / "gather_rows_op-000000000000.so"
+    bad.write_bytes(b"not a shared library")
+    monkeypatch.setattr(gather, "_op", None)
+    monkeypatch.setattr(_cuda_build, "_registered", {})
+    monkeypatch.setattr(_cuda_build, "library_path", lambda name: str(bad))
+    tab = torch.zeros((10, 8), device=cuda_device)
+    with pytest.raises(RuntimeError, match="did not load"):
+        gather.gather_rows(tab, torch.zeros(4, dtype=torch.int32,
+                                            device=cuda_device))
+
+
 @pytest.mark.gpu
 def test_gather_kernel_rejects_what_it_does_not_take(cuda_device):
     tab = torch.zeros((10, 8), device=cuda_device)
@@ -348,6 +467,11 @@ def test_gather_kernel_rejects_what_it_does_not_take(cuda_device):
         gather.gather_rows(tab[:, :3].bool().contiguous(), ids)
     with pytest.raises(ValueError):
         gather.gather_rows(tab, ids.cpu())
+    # The operator itself checks what the wrapper passes on unchecked.
+    with pytest.raises(ValueError, match="ids on cpu"):
+        torch.ops.vdb.gather_rows(tab, ids.cpu())
+    with pytest.raises(TypeError):
+        torch.ops.vdb.gather_rows(tab, ids.long())
 
 
 @pytest.mark.gpu

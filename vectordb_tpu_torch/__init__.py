@@ -8,7 +8,8 @@ path running on an NVIDIA GPU: the flat-serve scan, the graph index
 (exact-KNN build, beam traversal, search tuning) and filter masks evaluated
 on the device (expr/device.py). Its two hand-written CUDA kernels are the
 partial-min scan (csrc/partial_min.cu) and the row gather of traversal
-(csrc/gather_rows.cu). Parts of the TPU package not ported yet (sharding,
+(csrc/gather_rows.cu, called through the PyTorch operator
+torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). Parts of the TPU package not ported yet (sharding,
 sparse/hybrid search, the IVF KNN build, the reduced-precision query wires)
 raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
 

@@ -5,27 +5,32 @@ and vectordb_tpu/index/graph.py).
 `gather_rows(table, ids)` returns `table[clamp(ids, 0, N - 1)]` with shape
 `ids.shape + table.shape[1:]`. The clamp is the `jnp.clip` every JAX caller
 applies before its `jnp.take`, so callers pass raw ids (-1 padding included)
-and mask the padded slots themselves. On a CUDA tensor it launches the
-hand-written kernel csrc/gather_rows.cu; on a CPU tensor it runs
-`gather_rows_ref`, the plain PyTorch version. Both take the same arguments
-and raise on the same ones, and their outputs are bit-identical.
+and mask the padded slots themselves. On a CUDA table it calls the PyTorch
+operator `torch.ops.vdb.gather_rows` (csrc/gather_rows_op.cpp), which checks
+the arguments, allocates the output and launches the hand-written kernel
+csrc/gather_rows.cu in C++; on a CPU table it runs `gather_rows_ref`, the
+plain PyTorch version. Both raise TypeError for ids that are not int32 and
+ValueError for the other arguments the kernel does not take, and their
+outputs are bit-identical.
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import math
+from typing import Dict
 
 import torch
 
 # Kernel launches since the last reset (CPU calls of the plain version are
-# not counted): a run reads it to show the main path went through the kernel.
+# not counted), in all and by the bytes of a table row: a run reads them to
+# show the main path went through the kernel.
 launches = 0
+launches_by_row_bytes: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_row_bytes.clear()
 
 
 def _row_bytes(table: torch.Tensor) -> int:
@@ -33,6 +38,7 @@ def _row_bytes(table: torch.Tensor) -> int:
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
+    """The operator's checks, in Python."""
     if ids.dtype != torch.int32:
         raise TypeError(f"gather_rows: ids must be int32, got {ids.dtype}")
     if table.dim() < 1 or table.shape[0] <= 0:
@@ -48,6 +54,26 @@ def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
                          f"{table.device}")
 
 
+# The row widths the main path gathers, at the 1M-row traversal's sizes:
+# (name, dtype, table shape, number of ids).
+MAIN_PATH_SHAPES = (
+    # Store rows; 2,048 queries x a compacted 96 candidates (ops/beam.py:213).
+    ("bf16_store", torch.bfloat16, (1_048_576, 128), 196_608),
+    # Fused-neighbour rows of 48 x 128 int8 (ops/beam.py:201).
+    ("int8_fused", torch.int8, (1_048_576, 48 * 128), 8_192),
+    # Adjacency rows of degree 48 (ops/beam.py:187).
+    ("int32_adjacency", torch.int32, (1_048_576, 48), 8_192),
+    # f32 re-rank rows of one flat-serve program: 8,192 queries x k_cand 42
+    # (ops/beam.py:284).
+    ("f32_rerank", torch.float32, (262_144, 128), 344_064),
+    # 4-byte scalars: norms, the valid mask (ops/beam.py:151,266).
+    ("f32_scalar", torch.float32, (1_048_576,), 131_072),
+    # int8 store rows of 128 that the build packs into the fused table:
+    # 21,504 adjacency rows x degree 48 a launch (index/graph.py:460).
+    ("int8_build", torch.int8, (1_048_576, 128), 1_032_192),
+)
+
+
 def gather_cost(n_ids: int, row_bytes: int) -> int:
     """Bytes one gather must move, each counted once: the int32 ids read,
     the rows read, the rows written. A gather does no arithmetic, so its
@@ -55,14 +81,40 @@ def gather_cost(n_ids: int, row_bytes: int) -> int:
     return n_ids * (4 + 2 * row_bytes)
 
 
+_op = None
+
+
+def _operator():
+    """torch.ops.vdb.gather_rows, its library built and registered on first
+    use (_cuda_build raises, naming nvcc's output, if it fails)."""
+    global _op
+    if _op is None:
+        from .. import _cuda_build
+
+        _cuda_build.load_operator("gather_rows_op")
+        _op = torch.ops.vdb.gather_rows.default
+    return _op
+
+
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table [N, ...] (contiguous, row a multiple of 4 bytes), ids int32 of
     any shape -> table[clamp(ids, 0, N - 1)] of shape ids.shape +
-    table.shape[1:]."""
+    table.shape[1:]. Most calls gather a few kilobytes, so the CUDA route
+    does nothing in Python but count."""
+    global launches
+    if table.is_cuda:
+        out = (_op if _op is not None else _operator())(table, ids)
+        n = ids.numel()
+        if n:
+            launches += 1
+            rb = out.nbytes // n
+            launches_by_row_bytes[rb] = launches_by_row_bytes.get(rb, 0) + 1
+        return out
+    if table.device.type != "cpu":
+        raise ValueError(f"gather_rows: table on {table.device}; the kernel "
+                         "takes CUDA tensors, the plain version CPU ones")
     _check(table, ids)
-    if table.device.type == "cpu":
-        return gather_rows_ref(table, ids)
-    return _launch(table, ids)
+    return gather_rows_ref(table, ids)
 
 
 def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -70,43 +122,3 @@ def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     flat = ids.reshape(-1).clamp(0, table.shape[0] - 1).long()
     return table.index_select(0, flat).reshape(
         tuple(ids.shape) + tuple(table.shape[1:]))
-
-
-_kernel_fn = None
-
-
-def _kernel():
-    """The ctypes entry point of csrc/gather_rows.cu, built, loaded and
-    typed once: traversal calls the gather hundreds of times a query."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        from .. import _cuda_build
-
-        fn = _cuda_build.load("gather_rows").vdb_gather_rows
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_void_p]
-        _kernel_fn = fn
-    return _kernel_fn
-
-
-def _launch(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    global launches
-    ids = ids.contiguous()
-    out = torch.empty(tuple(ids.shape) + tuple(table.shape[1:]),
-                      dtype=table.dtype, device=table.device)
-    if ids.numel() == 0:
-        return out
-    fn = _kernel()
-    dev = table.device
-    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-           else torch.cuda.device(dev))
-    with ctx:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                ids.numel(), table.shape[0], _row_bytes(table), stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
-                           f"{rc}")
-    launches += 1
-    return out
