@@ -10,7 +10,9 @@ queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
 (B = 1,024, N = 1,048,576, exclude_self, n_valid); the row gather, bit for
 bit, at every row width the main path gathers (gather.MAIN_PATH_SHAPES:
 bf16 store rows, int8 fused rows, int32 adjacency rows, f32 re-rank rows,
-f32 scalars, the build's int8 store rows). Each case prints its time beside its bound on the H100
+f32 scalars, the build's int8 store rows, a sparse query's f32 scatter, the
+IVF build's bf16 candidate rows). Each case prints its time beside its
+bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
 tensor-core rate; the share of the bound), the plain version's time, and a
 yardstick it is never replaced by: index_select on clamped ids for the
@@ -35,10 +37,23 @@ read just after (gathers also by row width):
     and POST /api/rebuild;
   - the CLI as users start it: `python -m vectordb_tpu_torch` in a child
     process loads a dump of the database, answers queries and statistics,
-    and exits 0 on SIGINT.
+    and exits 0 on SIGINT;
+  - sparse + hybrid (after the 1M database is unloaded): 1,000,000 rows of
+    a dense field and a SPLADE-like sparse field over BERT's 30,522-term
+    vocabulary (about 120 Zipf(1.1) terms a row), 256 sparse queries
+    through vdb.query (64 more under `ID < 500000`) against a float64 CSR
+    oracle on the card, the scorer's error and time beside the JAX
+    package's prefix difference, 256 hybrid queries (rrf and weighted)
+    against the fusion rule recomputed from single-field queries, and 64
+    sparse + 64 hybrid requests over REST;
+  - IVF build: 3,000,000 x 128 clustered rows, vdb.rebuild() at the
+    default IvfKnnThreshold (ops/ivf.ivf_knn builds the KNN graph), its
+    neighbour recall@64 against the exact top-64 on the card, 16,384
+    grouped and 264 single queries.
 Results are checked against exact (masked) oracles: recall@10 >= 0.99
-(0.95 for the widened-beam filters), every returned row passes its filter,
-distances equal an f32 recomputation. Exits non-zero on any failure and
+(0.95 for the widened-beam filters; IVF neighbour recall@64 >= 0.90),
+every returned row passes its filter, distances equal an f32 (sparse:
+float64) recomputation. Exits non-zero on any failure and
 when no CUDA device is present; the last line is a JSON object with
 "ok": true.
 """
@@ -64,7 +79,8 @@ import torch
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build, rest
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import gather, partial_min
+from vectordb_tpu_torch.ops import gather, ivf, partial_min
+from vectordb_tpu_torch.ops.sparse import SparseVector
 from vectordb_tpu_torch.schema import MetricType
 
 KERNEL_B, KERNEL_N, KERNEL_D = 8192, 262144, 128
@@ -83,6 +99,15 @@ REST_FILTERS = (("none", "", None),
                 ("price>80", "price > 80.0", lambda c, p: p > 80.0),
                 ("price<5", "price < 5.0", lambda c, p: p < 5.0))
 CLI_BOOT_S = 120
+# Sparse + hybrid phase: rows, BERT's WordPiece vocabulary, Zipf draws a
+# row (about 120 distinct terms), queries (all, filtered, hybrid, REST).
+SPARSE_N, SPARSE_VOCAB, SPARSE_DRAWS = 1_000_000, 30_522, 203
+SPARSE_Q, SPARSE_FILTERED_Q, HYBRID_Q = 256, 64, 256
+REST_SPARSE, REST_HYBRID = 64, 64
+# IVF build phase: rows (the default IvfKnnThreshold), rows whose KNN
+# lists are held to the exact top-64, grouped and single queries.
+IVF_N, IVF_SAMPLE, IVF_Q, IVF_SINGLE = 3_000_000, 4096, 16_384, 256
+IVF_RECALL_FLOOR = 0.90  # tests/test_ivf_knn.py holds ivf_knn to it
 # Both sides add exact bf16 x bf16 products in f32 (the kernel on the tensor
 # cores), in different orders: an order changes a sum of D terms by at most
 # about D * 2^-24 of the sum of magnitudes, which |q|^2 + |x|^2 bounds.
@@ -952,6 +977,521 @@ def run_cli(tmp: str, table, x: np.ndarray, price: np.ndarray) -> dict:
     return out
 
 
+def make_sparse(dev: torch.device, n: int, vocab: int, seed: int = 3):
+    """SPLADE-like rows over a `vocab`-term vocabulary, generated on the
+    card in bulk: SPARSE_DRAWS Zipf(1.1) term draws a row (about 120
+    distinct terms), each term id mapped through a fixed permutation of the
+    vocabulary, sorted and deduplicated; values gamma(1, 1). Returns host
+    CSR arrays (indices int64, values f32, offsets int64)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.arange(1, vocab + 1, dtype=torch.float64, device=dev) ** -1.1
+    cdf = torch.cumsum(p, 0)
+    cdf /= cdf[-1].clone()
+    perm = torch.randperm(vocab, generator=g, device=dev)
+    idx_parts, counts = [], []
+    for s in range(0, n, 100_000):
+        m = min(100_000, n - s)
+        u = torch.rand((m, SPARSE_DRAWS), generator=g, device=dev,
+                       dtype=torch.float64)
+        t = perm[torch.searchsorted(cdf, u).clamp_(max=vocab - 1)]
+        t = torch.sort(t, dim=1).values
+        keep = torch.ones_like(t, dtype=torch.bool)
+        keep[:, 1:] = t[:, 1:] != t[:, :-1]
+        idx_parts.append(t[keep].cpu())
+        counts.append(keep.sum(1).cpu())
+    indices = torch.cat(idx_parts).numpy().astype(np.int64)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(torch.cat(counts).numpy(), out=offsets[1:])
+    values = torch.empty(len(indices), dtype=torch.float32,
+                         device=dev).exponential_(generator=g).cpu().numpy()
+    return indices, values, offsets
+
+
+def sparse_queries(indices, offsets, n_q: int, rng, terms: int = 32):
+    """Queries of `terms` terms of a random stored row (rows with at least
+    that many), values drawn again from gamma(1, 1), as REST-style dicts."""
+    out = []
+    lens = np.diff(offsets)
+    rows = np.nonzero(lens >= terms)[0]
+    for r in rng.choice(rows, n_q, replace=False):
+        row = indices[offsets[r]:offsets[r + 1]]
+        pick = np.sort(rng.choice(len(row), terms, replace=False))
+        out.append({"indices": row[pick].tolist(),
+                    "values": rng.gamma(1.0, 1.0, terms).astype(
+                        np.float32).tolist()})
+    return out
+
+
+def _query_dense(q: dict, vocab: int, dev) -> torch.Tensor:
+    col = torch.zeros(vocab, dtype=torch.float64)
+    col[torch.tensor(q["indices"])] = torch.tensor(q["values"],
+                                                   dtype=torch.float64)
+    return col.to(dev)
+
+
+def sparse_oracle(csr: torch.Tensor, qs, vocab: int, k: int = 10,
+                  rows_below: int = 0):
+    """float64 inner products of every row with each query on the card (a
+    torch.sparse_csr_tensor [N, vocab] f64 times a dense [vocab, B] f64
+    block), independent of the port. Returns (top-k ids by largest inner
+    product [B, k], the [N, B] inner products of the first block of 8);
+    rows_below > 0 keeps only rows below it."""
+    top, first = [], None
+    for s in range(0, len(qs), 64):
+        block = torch.stack([_query_dense(q, vocab, csr.device)
+                             for q in qs[s:s + 64]], dim=1)
+        ip = csr @ block
+        if first is None:
+            first = ip[:, :8].clone()
+        if rows_below:
+            ip[rows_below:] = -float("inf")
+        top.append(torch.topk(ip, k, dim=0).indices.T.cpu().numpy())
+        del ip
+    return np.concatenate(top), first
+
+
+def _sparse_rows_ip(q: dict, indices, values, offsets, rows):
+    """float64 (sum q_i x_i, sum |q_i x_i|) of `rows` on the host."""
+    qi = np.asarray(q["indices"], np.int64)
+    qv = np.asarray(q["values"], np.float64)
+    out = []
+    for r in rows:
+        ri = indices[offsets[r]:offsets[r + 1]]
+        rv = values[offsets[r]:offsets[r + 1]].astype(np.float64)
+        _, a, b = np.intersect1d(qi, ri, assume_unique=True,
+                                 return_indices=True)
+        prod = qv[a] * rv[b]
+        out.append((float(prod.sum()), float(np.abs(prod).sum())))
+    return out
+
+
+def check_sparse_results(results, qs, want, indices, values, offsets,
+                         what: str, rows_below: int = 0) -> float:
+    """Every result row passes the filter, every @distance equals the f64
+    -ip within rtol 1e-5 plus 1e-5 * sum |q_i x_i|; returns recall@10."""
+    hits = 0
+    for res, q, w in zip(results, qs, want):
+        ids = [h["ID"] for h in res]
+        if len(ids) != 10:
+            raise AssertionError(f"{what}: {len(ids)} rows")
+        if rows_below and max(ids) >= rows_below:
+            raise AssertionError(f"{what}: a row fails the filter")
+        for h, (ip, mag) in zip(res, _sparse_rows_ip(q, indices, values,
+                                                     offsets, ids)):
+            if abs(h["@distance"] + ip) > 1e-5 * abs(ip) + 1e-5 * mag:
+                raise AssertionError(f"{what}: @distance {h['@distance']} "
+                                     f"vs float64 {-ip}")
+        hits += len(set(ids) & set(w.tolist()))
+    recall = hits / (10.0 * len(results))
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"{what}: recall@10 {recall} < {RECALL_FLOOR}")
+    return recall
+
+
+def prefix_difference_ip(index, qd: torch.Tensor) -> torch.Tensor:
+    """The JAX package's scoring (vectordb_tpu/ops/sparse.py:85-109) on the
+    card, for comparison only: one f32 prefix sum over the column's
+    products, differenced at the row boundaries."""
+    idx, val, offs, _ = index._device_arrays()
+    c = torch.cumsum(gather.gather_rows(qd, idx) * val, 0)
+    c = torch.cat([c.new_zeros(1), c])
+    offs = offs.long()
+    return c[offs[1:]] - c[offs[:-1]]
+
+
+def fuse(lists, weights, rerank: str, limit: int):
+    """The hybrid fusion rule, recomputed from per-field (ids, distances)
+    lists: rrf w / (60 + rank + 1) or weighted w * (1 - (d - lo) / (hi -
+    lo)); an id's contributions summed in subquery order, the largest sums
+    first (ties to the lower id), scores negated."""
+    score = {}
+    for (ids, d), w in zip(lists, weights):
+        d = np.asarray(d, np.float64)
+        if rerank == "weighted":
+            fin = np.isfinite(d)
+            lo, hi = (d[fin].min(), d[fin].max()) if fin.any() else (0, 0)
+            span = (hi - lo) or 1.0
+            contrib = (w * (1.0 - (d - lo) / span) if fin.any()
+                       else np.zeros_like(d))
+        else:
+            contrib = w / (60.0 + np.arange(len(ids), dtype=np.float64) + 1)
+        for i, c in zip(ids, contrib):
+            score[i] = score.get(i, 0.0) + float(c)
+    top = sorted(score.items(), key=lambda kv: (-kv[1], kv[0]))[:limit]
+    return [i for i, _ in top], [-v for _, v in top]
+
+
+def run_sparse(dev: torch.device) -> dict:
+    """Sparse and hybrid search through the library API and REST on a
+    SPARSE_N-row table of a dense field (make_clustered, EUCLIDEAN) and a
+    SPLADE-like sparse field (DOT_PRODUCT) over BERT's WordPiece vocabulary,
+    checked against float64 oracles computed on the card."""
+    out = {"rows": SPARSE_N, "vocab": SPARSE_VOCAB}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    indices, values, offsets = make_sparse(dev, SPARSE_N, SPARSE_VOCAB)
+    x, dense_q = make_clustered(SPARSE_N, 128, HYBRID_Q, seed=0)
+    col = [SparseVector(indices[offsets[r]:offsets[r + 1]],
+                        values[offsets[r]:offsets[r + 1]])
+           for r in range(SPARSE_N)]
+    out["nnz"] = int(len(indices))
+    out["datagen_s"] = time.perf_counter() - t0
+    log(f"sparse data: {out['nnz']} nnz, "
+        f"{out['nnz'] / SPARSE_N:.1f} terms a row")
+    rng = np.random.default_rng(4)
+    qs = sparse_queries(indices, offsets, SPARSE_Q, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        assert vdb.load_db("sparse", os.path.join(tmp, "sparse"),
+                           vector_scale=SPARSE_N) == 0
+        vdb.use_db("sparse")
+        vdb.create_table("docs", [
+            {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "emb", "dataType": "VECTOR_FLOAT", "dimensions": 128,
+             "metricType": "EUCLIDEAN"},
+            {"name": "terms", "dataType": "SPARSE_VECTOR_FLOAT",
+             "dimensions": SPARSE_VOCAB, "metricType": "DOT_PRODUCT"}])
+        t0 = time.perf_counter()
+        code, res = vdb.insert_columns("docs", {"ID": np.arange(SPARSE_N),
+                                                "emb": x, "terms": col})
+        out["ingest_s"] = time.perf_counter() - t0
+        if code != 0 or res["inserted"] != SPARSE_N:
+            raise AssertionError(f"insert_columns: {code} {res}")
+        table = vdb._db.databases["sparse"].tables["docs"]
+        del col
+
+        # The first query builds the CSR snapshot and uploads it.
+        t0 = time.perf_counter()
+        vdb.query("docs", "terms", qs[-1], ["ID"], 10, "", True)
+        out["index_build_s"] = time.perf_counter() - t0
+        index = table._sparse_index("terms")
+
+        reset_counts()
+        lat, results = [], []
+        for q in qs:
+            t0 = time.perf_counter()
+            code, hits = vdb.query("docs", "terms", q, ["ID"], 10, "", True)
+            lat.append(time.perf_counter() - t0)
+            results.append(hits)
+        torch.cuda.synchronize()
+        out["query_counts"] = read_counts()
+        if out["query_counts"]["gather"] < SPARSE_Q:
+            raise AssertionError("sparse queries did not launch the gather "
+                                 "kernel once each")
+        lat = np.asarray(lat) * 1e3
+        out["query_ms"] = {"p50": float(np.percentile(lat, 50)),
+                           "p99": float(np.percentile(lat, 99))}
+        lo = SPARSE_N // 2
+        reset_counts()
+        flt_results = [vdb.query("docs", "terms", q, ["ID"], 10,
+                                 f"ID < {lo}", True)[1]
+                       for q in qs[:SPARSE_FILTERED_Q]]
+        torch.cuda.synchronize()
+        out["filtered_counts"] = read_counts()
+
+        # Oracles: float64 CSR products on the card.
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(offsets), torch.from_numpy(indices),
+            torch.from_numpy(values.astype(np.float64)),
+            size=(SPARSE_N, SPARSE_VOCAB), device=dev)
+        want, ip64 = sparse_oracle(csr, qs, SPARSE_VOCAB)
+        want_f, _ = sparse_oracle(csr, qs[:SPARSE_FILTERED_Q], SPARSE_VOCAB,
+                                  rows_below=lo)
+        del csr
+        out["recall_at_10"] = check_sparse_results(
+            results, qs, want, indices, values, offsets, "sparse")
+        out["filtered_recall_at_10"] = check_sparse_results(
+            flt_results, qs[:SPARSE_FILTERED_Q], want_f, indices, values,
+            offsets, f"sparse ID < {lo}", rows_below=lo)
+        log(f"sparse queries: {json.dumps(out)}")
+
+        # Scoring error of every row for 8 queries, and the scorer's time,
+        # against the JAX package's prefix difference on the same inputs.
+        err, err_prefix = 0.0, 0.0
+        for j in range(8):
+            q = SparseVector(np.asarray(qs[j]["indices"], np.int64),
+                             np.asarray(qs[j]["values"], np.float32))
+            ip = -index.device_scores(q, MetricType.DOT_PRODUCT).double()
+            err = max(err, float((ip - ip64[:, j]).abs().max()))
+            qd = torch.zeros(SPARSE_VOCAB + 1, device=dev)
+            qd[torch.from_numpy(q.indices).to(dev)] = torch.from_numpy(
+                q.values).to(dev)
+            pre = prefix_difference_ip(index, qd).double()
+            err_prefix = max(err_prefix, float((pre - ip64[:, j]).abs()
+                                               .max()))
+        del ip64
+        out["max_abs_err_ip"] = err
+        out["max_abs_err_ip_prefix_difference"] = err_prefix
+        out["max_ip"] = float(-min(h[0]["@distance"] for h in results))
+        times = in_turns({
+            "scorer_ms": lambda: index.device_scores(
+                q, MetricType.DOT_PRODUCT),
+            "gather_ms": lambda: gather.gather_rows(qd, index._dev[0]),
+            "prefix_difference_ms": lambda: prefix_difference_ip(index, qd)},
+            lambda c: stream_ms(c, inner=10), rounds=5)
+        out.update(times)
+        out["profile"] = device_profile(lambda: [
+            vdb.query("docs", "terms", q, ["ID"], 10, "", True)
+            for q in qs[:20]])
+        out["profile"]["device_ms_per_query"] = \
+            out["profile"]["device_ms"] / 20
+        scorer = ("max_abs_err_ip", "max_abs_err_ip_prefix_difference",
+                  "max_ip", *times)
+        log(f"sparse scorer: {json.dumps({k: out[k] for k in scorer})}")
+        log(f"sparse profile (20 queries): {json.dumps(out['profile'])}")
+
+        # Hybrid: a dense and a sparse subquery each, rrf and weighted.
+        pool = max(4 * 10, 10 + 32)
+        hq = [[{"field": "emb", "vector": dense_q[i].tolist(),
+                "weight": 1.0},
+               {"field": "terms", "vector": qs[i], "weight": 1.0}]
+              for i in range(HYBRID_Q)]
+        reset_counts()
+        lat, hres = [], []
+        for i, sub in enumerate(hq):
+            rerank = "rrf" if i % 2 == 0 else "weighted"
+            t0 = time.perf_counter()
+            code, rows = vdb.hybrid_query("docs", sub, ["ID"], 10, "", True,
+                                          rerank=rerank)
+            lat.append(time.perf_counter() - t0)
+            hres.append(rows)
+        torch.cuda.synchronize()
+        out["hybrid_counts"] = read_counts()
+        lat = np.asarray(lat) * 1e3
+        out["hybrid_ms"] = {"p50": float(np.percentile(lat, 50)),
+                            "p99": float(np.percentile(lat, 99))}
+        for i, (sub, rows) in enumerate(zip(hq, hres)):
+            lists = []
+            for s in sub:
+                _, r = vdb.query("docs", s["field"], s["vector"], ["ID"],
+                                 pool, "", True)
+                lists.append(([h["ID"] for h in r],
+                              [h["@distance"] for h in r]))
+            ids, scores = fuse(lists, [1.0, 1.0],
+                               "rrf" if i % 2 == 0 else "weighted", 10)
+            got = [h["ID"] for h in rows]
+            if got != ids or any(abs(h["@distance"] - sc) > 1e-12
+                                 for h, sc in zip(rows, scores)):
+                raise AssertionError(
+                    f"hybrid {i}: {got} vs the fusion rule's {ids}; "
+                    f"{[h['@distance'] for h in rows]} vs {scores}")
+        log(f"hybrid: p50/p99 ms {json.dumps(out['hybrid_ms'])} launches "
+            f"{json.dumps(out['hybrid_counts'])}")
+
+        out["rest"] = run_rest_sparse(qs, hq, results, hres)
+        log(f"rest sparse + hybrid: {json.dumps(out['rest'])}")
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del index
+        vdb.unload_db("sparse")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_rest_sparse(qs, hq, results, hres) -> dict:
+    """REST_SPARSE sparse and REST_HYBRID hybrid requests through the REST
+    server in-process (one keep-alive connection; the requests run on the
+    handler thread, library mode): status 200 and the library calls' ids."""
+    httpd = rest.create_server(0, vdb._db, host="127.0.0.1")
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    path = "/api/sparse/data/query"
+    out = {}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        reset_counts()
+        lat = []
+        for i in range(REST_SPARSE):
+            st, body, secs = _post(conn, path, {
+                "table": "docs", "queryField": "terms", "queryVector": qs[i],
+                "limit": 10, "response": ["ID"], "withDistance": True})
+            if st != 200 or [r["ID"] for r in body["result"]] != \
+                    [h["ID"] for h in results[i]]:
+                raise AssertionError(f"REST sparse {i}: {st} {body}")
+            lat.append(secs)
+        for i in range(REST_HYBRID):
+            st, body, secs = _post(conn, path, {
+                "table": "docs", "queryVectors": hq[i], "limit": 10,
+                "rerank": "rrf" if i % 2 == 0 else "weighted",
+                "response": ["ID"], "withDistance": True})
+            if st != 200 or [r["ID"] for r in body["result"]] != \
+                    [h["ID"] for h in hres[i]]:
+                raise AssertionError(f"REST hybrid {i}: {st} {body}")
+            lat.append(secs)
+        torch.cuda.synchronize()
+        out["counts"] = read_counts()
+        conn.close()
+        lat = np.asarray(lat) * 1e3
+        out["sparse_p50_ms"] = float(np.percentile(lat[:REST_SPARSE], 50))
+        out["hybrid_p50_ms"] = float(np.percentile(lat[REST_SPARSE:], 50))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return out
+
+
+def run_ivf(dev: torch.device) -> dict:
+    """The IVF-partitioned graph build: IVF_N x 128 clustered rows,
+    vdb.rebuild() at the default IvfKnnThreshold (so ops/ivf.ivf_knn builds
+    the KNN graph, its output kept for the recall check), the neighbour
+    recall@64 of IVF_SAMPLE rows against the exact top-64 on the card, then
+    grouped and single queries against the exact oracle."""
+    x, queries = make_clustered(IVF_N, 128, IVF_Q, seed=2)
+    out = {"rows": IVF_N, "dim": 128}
+    captured = []
+    ivf_knn = ivf.ivf_knn
+
+    def keep_ivf_knn(*args, **kwargs):  # the build's own KNN lists
+        captured.append(ivf_knn(*args, **kwargs))
+        return captured[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        assert vdb.load_db("ivf", os.path.join(tmp, "ivf"),
+                           vector_scale=IVF_N) == 0
+        vdb.use_db("ivf")
+        vdb.create_table("docs", [
+            {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": 128,
+             "metricType": "EUCLIDEAN"}])
+        t0 = time.perf_counter()
+        code, res = vdb.insert_columns("docs", {"ID": np.arange(IVF_N),
+                                                "Emb": x})
+        out["ingest_s"] = time.perf_counter() - t0
+        if code != 0 or res["inserted"] != IVF_N:
+            raise AssertionError(f"insert_columns: {code} {res}")
+        assert vdb.update_config({"QueryGroupSize": 4,
+                                  "FusedTraversal": "auto"}) == 0
+        if IVF_N < vdb.global_config.ivf_knn_threshold:
+            raise AssertionError("the table is below IvfKnnThreshold")
+        table = vdb._db.databases["ivf"].tables["docs"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        ivf.ivf_knn = keep_ivf_knn
+        try:
+            t0 = time.perf_counter()
+            code = vdb.rebuild()
+            torch.cuda.synchronize()
+            out["rebuild_s"] = time.perf_counter() - t0
+        finally:
+            ivf.ivf_knn = ivf_knn
+        out["build_counts"] = read_counts()
+        out["rebuild_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        graph = table.graphs["Emb"]
+        if code != 0 or graph is None or graph.num_rows != IVF_N:
+            raise AssertionError(f"rebuild: code {code}, graph {graph}")
+        if len(captured) != 1 or graph.ivf_stats.get("n") != IVF_N:
+            raise AssertionError("the build did not go through ivf_knn")
+        out["build_phase_s"] = graph.build_seconds
+        out["ivf"] = graph.ivf_stats
+        log(f"ivf build phases (s): {json.dumps(graph.build_seconds)}")
+        log(f"ivf_knn: {json.dumps(graph.ivf_stats)}")
+
+        # Neighbour recall@64 of the build's KNN lists against the exact
+        # top-64 of the rows the build indexed (the store's bf16 values,
+        # f32 products) and, printed only, of the f32 rows.
+        knn_ids = captured[0][0]
+        del captured[:]
+        k = knn_ids.shape[1]
+        rng = np.random.default_rng(5)
+        sample = np.sort(rng.choice(IVF_N, IVF_SAMPLE, replace=False))
+        store = table.segment.device_view("Emb").buf[:IVF_N]
+        for name, tab in (("store", None), ("f32", x)):
+            t = (store.float() if tab is None
+                 else torch.from_numpy(tab).to(dev))
+            tn = (t * t).sum(1)
+            hits = 0
+            for s in range(0, IVF_SAMPLE, 256):
+                rows = torch.from_numpy(sample[s:s + 256]).to(dev)
+                d = tn[None, :] - 2.0 * (t[rows] @ t.T)
+                d[torch.arange(len(rows), device=dev), rows] = float("inf")
+                top = torch.topk(d, k, dim=1, largest=False).indices
+                for a, b in zip(knn_ids[sample[s:s + 256]],
+                                top.cpu().numpy()):
+                    hits += len(set(a.tolist()) & set(b.tolist()))
+                del d
+            out[f"knn_recall_at_{k}_{name}"] = hits / (IVF_SAMPLE * k)
+            del t, tn
+        del store
+        torch.cuda.empty_cache()
+        if out[f"knn_recall_at_{k}_store"] < IVF_RECALL_FLOOR:
+            raise AssertionError(f"IVF recall@{k} "
+                                 f"{out[f'knn_recall_at_{k}_store']} < "
+                                 f"{IVF_RECALL_FLOOR}")
+        log(f"ivf knn recall@{k}: store {out[f'knn_recall_at_{k}_store']} "
+            f"f32 {out[f'knn_recall_at_{k}_f32']}")
+
+        # Queries: grouped (the graph program) and single.
+        x_dev = torch.from_numpy(x).to(dev)
+        n_rec = min(2048, IVF_Q)
+        want = oracle_top10_gpu(x_dev, x, queries[:n_rec])
+        del x_dev
+        torch.cuda.empty_cache()
+        valid = table.segment.valid_mask()
+        table.grouped_dense_search("Emb", queries[:GRAPH_BATCH * 4 + 1],
+                                   valid, MetricType.EUCLIDEAN, 10,
+                                   batch=GRAPH_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        ids, dists = table.grouped_dense_search(
+            "Emb", queries, valid, MetricType.EUCLIDEAN, 10,
+            batch=GRAPH_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["grouped"] = {"qps": IVF_Q / wall, "wall_s": wall,
+                          "counts": read_counts(),
+                          "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        if ids.shape != (IVF_Q, 10) or not np.isfinite(dists).all():
+            raise AssertionError(f"grouped result shape {ids.shape}")
+        out["grouped"]["recall_at_10"] = float(np.mean(
+            [len(set(a) & set(b)) / 10.0 for a, b in zip(ids[:n_rec], want)]))
+        if out["grouped"]["recall_at_10"] < RECALL_FLOOR:
+            raise AssertionError(f"IVF graph recall@10 "
+                                 f"{out['grouped']['recall_at_10']}")
+        exact = ((x[ids] - queries[:, None, :]) ** 2).sum(2)
+        if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
+            raise AssertionError("IVF graph distances differ from f32 "
+                                 "recomputation")
+        log(f"ivf grouped: {json.dumps(out['grouped'])}")
+        # Single queries: recall over all of them is held to the floor of
+        # the other phases; the per-query overlaps (and the grouped recall
+        # of the same queries) show the margin.
+        reset_counts()
+        n_single = IVF_SINGLE + 8
+        lat, overlap = [], []
+        for i in range(n_single):
+            t0 = time.perf_counter()
+            code, hits = vdb.query("docs", "Emb", queries[i].tolist(),
+                                   ["ID"], 10, "", True)
+            lat.append(time.perf_counter() - t0)
+            if code != 0 or len(hits) != 10:
+                raise AssertionError(f"IVF single query {i}: {hits}")
+            overlap.append(len(set(h["ID"] for h in hits)
+                               & set(want[i].tolist())))
+        out["single_counts"] = read_counts()
+        lat = np.asarray(lat[8:]) * 1e3
+        overlap = np.asarray(overlap)
+        out["single_ms"] = {
+            "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)),
+            "queries": n_single,
+            "recall_at_10": float(overlap.sum() / (10.0 * n_single)),
+            "min_overlap": int(overlap.min()),
+            "below_10": [[i, int(o)] for i, o in enumerate(overlap)
+                          if o < 10],
+            "grouped_recall_at_10_same_queries": float(np.mean(
+                [len(set(a) & set(b)) / 10.0
+                 for a, b in zip(ids[:n_single], want)]))}
+        if out["single_ms"]["recall_at_10"] < RECALL_FLOOR:
+            raise AssertionError(f"IVF single queries: recall@10 "
+                                 f"{out['single_ms']['recall_at_10']}")
+        log(f"ivf single queries (ms): {json.dumps(out['single_ms'])}")
+        vdb.unload_db("ivf")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -980,6 +1520,14 @@ def main() -> int:
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
     log(f"graph: {json.dumps(gr)}")
+    t0 = time.perf_counter()
+    sp = run_sparse(dev)
+    sp["phase_s"] = time.perf_counter() - t0
+    log(f"sparse: {json.dumps(sp)}")
+    t0 = time.perf_counter()
+    iv = run_ivf(dev)
+    iv["phase_s"] = time.perf_counter() - t0
+    log(f"ivf: {json.dumps(iv)}")
     # Launch counts of every main-path phase (the CLI's child process
     # aside), and the gathers by the bytes of a table row.
     phases = {"slice_single": sl["single_counts"],
@@ -992,12 +1540,23 @@ def main() -> int:
               "graph_filtered": gr["filtered"]["counts"],
               "rest_queries": gr["rest"]["counts"],
               "rest_insert": gr["rest"]["insert_counts"],
-              "rest_rebuild": gr["rest"]["rebuild_counts"]}
+              "rest_rebuild": gr["rest"]["rebuild_counts"],
+              "sparse_queries": sp["query_counts"],
+              "sparse_filtered": sp["filtered_counts"],
+              "hybrid": sp["hybrid_counts"],
+              "rest_sparse_hybrid": sp["rest"]["counts"],
+              "ivf_build": iv["build_counts"],
+              "ivf_grouped": iv["grouped"]["counts"],
+              "ivf_single": iv["single_counts"]}
     by_width = {}
     for c in phases.values():
         for rb, k in c["gather_by_row_bytes"].items():
             by_width[rb] = by_width.get(rb, 0) + k
     log(f"launches by phase: {json.dumps(phases)}")
+    for phase, widths in (("sparse_queries", (4,)), ("ivf_build", (256,))):
+        if not all(phases[phase]["gather_by_row_bytes"].get(w, 0) > 0
+                   for w in widths):
+            raise AssertionError(f"{phase}: no gathers of {widths}-byte rows")
     main_pm = pm_cases["l2_mask_nvalid"]
     trav = gather_cases["bf16_store"]
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",

@@ -146,6 +146,8 @@ def test_gather_rejects_what_the_kernel_does_not_take(bad):
     (8_192, 192, 3_178_496, 0.00095),      # int32 [1M x 48] adjacency
     (344_064, 512, 353_697_792, 0.10558),  # f32 [262,144 x 128] re-rank
     (131_072, 4, 1_572_864, 0.000470),     # f32 [1M] scalars
+    (120_000_000, 4, 1_440_000_000, 0.42985),  # f32 [30,523] query scatter
+    (262_144, 256, 135_266_304, 0.04038),  # bf16 [4M x 128] IVF candidates
 ])
 def test_gather_cost_and_bound(n_ids, row_bytes, want_bytes, want_ms):
     """Bytes moved once each (ids, rows read, rows written) and the bound

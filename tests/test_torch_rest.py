@@ -5,8 +5,7 @@ payloads to both packages' RestServer, each over its own DBServer and data
 directory; status codes, messages and results must be equal (floats
 within rtol 1e-5: both report exact f32 re-ranked distances, summed in
 different orders). Also: one round trip over a real socket, query by
-content through a mock embedding sidecar, and hybrid and sparse queries,
-which the port answers 501 (not ported).
+content through a mock embedding sidecar, and hybrid and sparse queries.
 """
 import glob
 import json
@@ -392,29 +391,48 @@ class TestEndpoints:
 
 
 def test_hybrid_and_sparse_queries_answer_501(tmp_path):
-    rest = RestServer(DBServer())
+    """Sparse (`queryVector` as {indices, values}) and hybrid
+    (`queryVectors`) bodies no longer answer 501: they answer 200 with the
+    JAX package's results, filtered or not."""
+    both = Both(tmp_path)
     try:
-        code, _ = rest.dispatch("POST", "/api/load",
-                                {"name": "s", "path": str(tmp_path / "s")},
-                                {})
-        assert code == 200
-        code, _ = rest.dispatch("POST", "/api/s/schema/tables", {
+        code, _ = both.call("POST", "/api/db1/schema/tables", {
             "name": "t", "fields": [
                 {"name": "ID", "dataType": "INT", "primaryKey": True},
                 {"name": "D", "dataType": "VECTOR_FLOAT", "dimensions": 4},
                 {"name": "S", "dataType": "SPARSE_VECTOR_FLOAT",
-                 "dimensions": 100}]}, {})
+                 "dimensions": 100, "metricType": "DOT_PRODUCT"}]})
         assert code == 200
-        for body in ({"table": "t", "limit": 3, "queryField": "S",
-                      "queryVector": {"indices": [1, 5],
-                                      "values": [0.5, 0.5]}},
-                     {"table": "t", "limit": 3, "queryVectors": [
-                         {"field": "D", "vector": [0.1] * 4}]}):
-            code, resp = rest.dispatch("POST", "/api/s/data/query", body, {})
-            assert code == 501, resp
-            assert "not ported" in resp["message"]
+        rng = np.random.default_rng(3)
+        data = [{"ID": i, "D": rng.normal(size=4).round(3).tolist(),
+                 "S": {"indices": sorted(rng.choice(12, 4, replace=False)
+                                         .tolist()),
+                       "values": rng.uniform(0.1, 2.0, 4).round(3).tolist()}}
+                for i in range(40)]
+        code, _ = both.call("POST", "/api/db1/data/insert",
+                            {"table": "t", "data": data})
+        assert code == 200
+        sparse = {"indices": data[7]["S"]["indices"],
+                  "values": [1.0, 0.7, 0.4, 0.2]}
+        for flt in ("", "ID < 20"):
+            for body in ({"queryField": "S", "queryVector": sparse},
+                         {"queryVectors": [
+                             {"field": "D", "vector": data[7]["D"]},
+                             {"field": "S", "vector": sparse,
+                              "weight": 0.5}]},
+                         {"queryVectors": [
+                             {"field": "D", "vector": data[7]["D"]},
+                             {"field": "S", "vector": sparse}],
+                          "rerank": "weighted"}):
+                code, resp = both.call("POST", "/api/db1/data/query", dict(
+                    body, table="t", limit=5, response=["ID"],
+                    withDistance=True, filter=flt))
+                assert code == 200, resp
+                assert len(resp["result"]) == 5
+                if flt:
+                    assert all(r["ID"] < 20 for r in resp["result"])
     finally:
-        rest.db.stop()
+        both.close()
 
 
 def test_http_round_trip(tmp_path):

@@ -22,7 +22,6 @@ from vectordb_tpu.table import Table as JaxTable
 from vectordb_tpu.config import global_config as jax_config
 from vectordb_tpu.schema import MetricType
 from vectordb_tpu_torch.config import global_config as torch_config
-from vectordb_tpu_torch.errors import NOT_IMPLEMENTED_ERROR
 from vectordb_tpu_torch.ops import beam as tbeam
 from vectordb_tpu_torch.table import Table as TorchTable
 
@@ -158,17 +157,11 @@ def test_delete_then_query_matches_jax(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path):
-    """Hybrid search, the reduced-precision query wires, the sharded plane
-    and the IVF KNN build (IvfKnnThreshold rows and up) are not ported:
-    they raise or return NOT_IMPLEMENTED_ERROR."""
+    """The reduced-precision query wires and the sharded plane are not
+    ported: they raise NOT_IMPLEMENTED_ERROR."""
     n = 10_000
     _load(tvdb, tmp_path / "t", "t", n, 8, "EUCLIDEAN", seed=0)
-    assert tvdb.update_config({"IvfKnnThreshold": n}) == 0
     t = tvdb._db.databases["db"].tables["t"]
-    assert tvdb.rebuild() == NOT_IMPLEMENTED_ERROR
-    assert t.graphs["Emb"] is None
-    with pytest.raises(Exception, match="not ported"):
-        tvdb.hybrid_query("t", [{"field": "Emb", "vector": [0.0] * 8}])
     for wire in ("bf16", "int8"):
         assert tvdb.update_config({"QueryDtype": wire}) == 0
         with pytest.raises(Exception, match="not ported"):

@@ -5,13 +5,16 @@ tables -> fields), filter language, facets, WAL + snapshot persistence,
 function API, REST server (`python -m vectordb_tpu_torch`, rest/), periodic
 rebuild thread, leader/follower and embedding service, with the dense query
 path running on an NVIDIA GPU: the flat-serve scan, the graph index
-(exact-KNN build, beam traversal, search tuning) and filter masks evaluated
-on the device (expr/device.py). Its two hand-written CUDA kernels are the
-partial-min scan (csrc/partial_min.cu) and the row gather of traversal
+(exact-KNN build, or the IVF-partitioned KNN from IvfKnnThreshold rows up;
+beam traversal, search tuning), filter masks evaluated on the device
+(expr/device.py), and sparse and hybrid (dense + sparse) search with every
+row of a sparse column scored on the device (ops/sparse.py). Its two
+hand-written CUDA kernels are the partial-min scan (csrc/partial_min.cu)
+and the row gather of traversal, of the IVF build and of sparse scoring
 (csrc/gather_rows.cu, called through the PyTorch operator
-torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). Parts of the TPU package not ported yet (sharding,
-sparse/hybrid search, the IVF KNN build, the reduced-precision query wires)
-raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
+torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). Parts of the TPU
+package not ported yet (sharding, the reduced-precision query wires) raise
+NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
 
 A data directory written by either package opens in the other.
 
@@ -189,8 +192,8 @@ def statistics(db_name: Optional[str] = None) -> Tuple[int, Dict[str, Any]]:
 
 def rebuild() -> int:
     """Build the graph index of every dense field whose row count changed
-    (tables below MinimalGraphSize rows stay flat). Returns 0, or
-    NOT_IMPLEMENTED_ERROR for a table at IvfKnnThreshold rows or more."""
+    (tables below MinimalGraphSize rows stay flat; from IvfKnnThreshold
+    rows up the KNN graph is IVF-partitioned). Returns 0."""
     return _engine().rebuild().code
 
 

@@ -10,7 +10,7 @@ for both engines. This package reads the ones its slices use: the flat path
 QueryBatchWindowMs, DeviceRerank, DeviceRerankMaxBytes, QueryGroupSize,
 QueryDtype, FlatServe, FlatServeMaxRows) and the graph index
 (MinimalGraphSize, SearchEf, BruteForceThreshold, GraphKnnK, GraphDegree,
-GraphAlpha, Beam*, IvfKnnThreshold, WarmupBuckets, BuildSearch*,
+GraphAlpha, Beam*, IvfKnnThreshold, IvfProbes, WarmupBuckets, BuildSearch*,
 FusedTraversal, FusedMaxBytes, AutoTuneSearch, AutoTuneTargetRecall). The
 others, DeviceHbmBytes among them (the port asks the card for its free
 memory), steer paths that are not ported yet and are accepted and kept

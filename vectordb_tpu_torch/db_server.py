@@ -7,8 +7,7 @@ thread (every RebuildIntervalSeconds, 60 s by default; db_server.hpp:21,
 entry points mirror the reference facade: LoadDB/UnloadDB/ReleaseDB/DumpDB/
 CreateTable/DropTable/Insert/InsertPrepare/Delete/Search/SearchByContent/
 Project/GetStatistics/Rebuild/SwapExecutors/SetLeader, plus search tuning
-and the reference-format export. Hybrid search answers
-NOT_IMPLEMENTED_ERROR (sparse and hybrid search are not ported yet).
+and the reference-format export, and hybrid (dense + sparse) search.
 """
 from __future__ import annotations
 
@@ -376,8 +375,8 @@ class DBServer:
                       rerank: str = "rrf",
                       facets_config: Optional[List[Dict[str, Any]]] = None
                       ) -> Tuple[Status, List[Dict[str, Any]], List[Any]]:
-        """Dense + sparse fusion re-ranking across vector fields (not
-        ported: the table raises NOT_IMPLEMENTED_ERROR)."""
+        """Dense + sparse fusion re-ranking across vector fields
+        (Table.hybrid_search: rrf or weighted)."""
         try:
             table = self._get_table(db_name, table_name)
             nodes = parse_expr(filter_str or "", table.field_type_map)

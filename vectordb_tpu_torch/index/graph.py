@@ -5,7 +5,8 @@ The reference's KNN graph + NSG build (ann_graph_segment.cpp:201-242,
 nsg.cpp:45-99) becomes a fixed-degree padded `int32[N, R]` adjacency
 (padding -1) built in device batches:
 
-  1. exact KNN graph (ops/knn: the partial-min kernel on the card);
+  1. KNN graph: exact (ops/knn: the partial-min kernel on the card), or
+     from IvfKnnThreshold rows up the IVF-partitioned KNN (ops/ivf);
   2. navigation point = the row nearest the centroid (nsg.cpp:101-155);
   3. representative cover: one row per k-means cluster (ops/ivf), the
      query-time seeds;
@@ -34,6 +35,7 @@ import torch
 
 from ..logger import logger
 from ..ops.beam import _cand_scores, beam_search_kernel
+from ..ops import ivf as ivf_ops
 from ..ops.gather import gather_rows
 from ..ops.knn import exact_knn
 from ..schema import MetricType
@@ -79,8 +81,6 @@ def _cover_rep_ids(table: torch.Tensor, n: int, s: int,
     iterations), then every row assigned: an epsilon-net cover, so every
     basin has a seed. The navigation point replaces its own cluster's
     seed."""
-    from ..ops.ivf import _assign_all, _kmeans_iters
-
     dev = table.device
     c_real = min(s, COVER_MAX_CENTROIDS)
     c = -(-c_real // 128) * 128
@@ -95,12 +95,11 @@ def _cover_rep_ids(table: torch.Tensor, n: int, s: int,
                        device=dev)
     cent0[:c_real] = gather_rows(
         sample, torch.from_numpy(init_ids).to(dev)).float()
-    s_norms = (sample.float() ** 2).sum(dim=1)
-    centroids = _kmeans_iters(sample, s_norms, cent0, samp, 1024, 4)
+    centroids = ivf_ops._kmeans_iters(sample, cent0, samp, 1024, 4)
     blk = min(8192, table.shape[0])
     while table.shape[0] % blk:
         blk //= 2
-    a1 = _assign_all(table, centroids, n, blk).cpu().numpy()[:n]
+    a1 = ivf_ops._assign_all(table, centroids, n, blk).cpu().numpy()[:n]
     uniq, first = np.unique(a1, return_index=True)
     first = first.astype(np.int32)
     if 0 <= nav < n and nav not in first:
@@ -324,8 +323,10 @@ class GraphIndex:
         self._table_f32 = None
         self._adj_trav_cache: Dict[int, torch.Tensor] = {}
         self._fused_cache: Dict = {}
-        # Seconds per build phase (empty for a loaded graph).
+        # Seconds per build phase, and what ops/ivf.ivf_knn reported when
+        # it built the KNN graph (both empty for a loaded graph).
         self.build_seconds: Dict[str, float] = {}
+        self.ivf_stats: Dict[str, float] = {}
         if rep_ids_host is not None:  # build / persisted cover reps
             self.rep_ids_host = np.asarray(rep_ids_host, dtype=np.int32)
         else:  # artifact without reps: recompute the cover
@@ -471,7 +472,9 @@ class GraphIndex:
               search_pools: Optional[bool] = None) -> "GraphIndex":
         """Build a graph over the segment's current rows. Phase seconds
         (device work waited for at each phase's end) land in
-        `build_seconds` and the log."""
+        `build_seconds` and the log; from IvfKnnThreshold rows up the KNN
+        graph comes from ops/ivf.ivf_knn, whose figures land in
+        `ivf_stats`."""
         from ..config import global_config as _cfg
         from ..metrics import metrics
         from ..native import get_native
@@ -499,8 +502,21 @@ class GraphIndex:
         get_native()  # build the host helpers outside the phase laps
         lap("sync")
 
-        # 1. Exact KNN graph (the partial-min kernel on the card).
-        knn_ids, _ = exact_knn(store.buf, store.norms, n, knn_k, metric)
+        # 1. KNN graph: exact (the partial-min kernel on the card) or, from
+        #    IvfKnnThreshold rows up, IVF-partitioned. The prune stage
+        #    recomputes distances, so ivf_knn returns ids only; they are
+        #    padded to whole prune batches with -1 (rows the pad covers lie
+        #    inside the store, whose capacity is a multiple of 4096).
+        ivf_stats: Dict[str, float] = {}
+        if n >= _cfg.ivf_knn_threshold:
+            ids_h, _ = ivf_ops.ivf_knn(store.buf, n, knn_k, metric,
+                                       n_probe=_cfg.ivf_probes,
+                                       need_dists=False, stats=ivf_stats)
+            pad_n = -(-n // PRUNE_BATCH) * PRUNE_BATCH
+            knn_ids = torch.from_numpy(np.pad(
+                ids_h, ((0, pad_n - n), (0, 0)), constant_values=-1)).to(dev)
+        else:
+            knn_ids, _ = exact_knn(store.buf, store.norms, n, knn_k, metric)
         lap("knn")
 
         # 2. Navigation point: the row nearest the centroid (host).
@@ -572,6 +588,7 @@ class GraphIndex:
         g = cls(segment, field_name, metric, adjacency, nav, n,
                 rep_ids_host=reps_host)
         g.build_seconds = phases
+        g.ivf_stats = ivf_stats
         return g
 
     # Persistence (role of ann_graph_<field>.bin,

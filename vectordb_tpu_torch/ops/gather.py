@@ -71,6 +71,14 @@ MAIN_PATH_SHAPES = (
     # int8 store rows of 128 that the build packs into the fused table:
     # 21,504 adjacency rows x degree 48 a launch (index/graph.py:460).
     ("int8_build", torch.int8, (1_048_576, 128), 1_032_192),
+    # A sparse query's f32 scatter over BERT's 30,522-term vocabulary plus
+    # its trailing zero, read at every stored index of a 1M-row column of
+    # about 120 terms a row (ops/sparse.py, SparseColumnIndex).
+    ("f32_query_scatter", torch.float32, (30_523,), 120_000_000),
+    # Candidate rows of one group of the IVF KNN loop over a 3M-row store
+    # (capacity 4,194,304): 32 tiles x 8 probed tiles x 1,024 rows
+    # (ops/ivf.py, _probed_knn_group).
+    ("bf16_ivf_candidates", torch.bfloat16, (4_194_304, 128), 262_144),
 )
 
 

@@ -7,8 +7,8 @@ result}) and status-code mapping, so clients of the reference engine (e.g.
 pyepsilla) work unchanged. HTTP plumbing is Python stdlib (ThreadingHTTPServer)
 — the reference's perf-critical path is the engine, not the web layer, and
 the engine batches concurrent requests onto the device kernels. Hybrid
-(`queryVectors`) and sparse queries answer 501 (NOT_IMPLEMENTED_ERROR)
-until sparse search is ported.
+(`queryVectors`) and sparse (`queryVector` as {indices, values}) queries
+take the engine's sparse and hybrid search.
 """
 from __future__ import annotations
 

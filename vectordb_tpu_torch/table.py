@@ -11,10 +11,13 @@ FlatServeMaxRows, or, once rebuild() has built an ANN graph, by batched
 beam search over the graph (ops/beam, whose row gathers are a hand-written
 CUDA kernel) with a flat tail over rows inserted after the build
 (vec_search_executor.cpp:885-914 semantics); candidates are then re-ranked
-exactly in f32. The sharded plane, sparse and hybrid search, the IVF KNN
-build (IvfKnnThreshold rows and up) and the reduced-precision query wires
-are not ported yet: they raise or return NOT_IMPLEMENTED_ERROR, never
-answer differently.
+exactly in f32. Tables of IvfKnnThreshold rows and more build their KNN
+graph through the IVF-partitioned KNN (ops/ivf.ivf_knn). A sparse query
+scores every row on the device (ops/sparse.SparseColumnIndex), takes the
+k + RERANK_SLACK best there and re-ranks them exactly on the host;
+hybrid_search fuses per-field result sets (rrf or weighted). The sharded
+plane and the reduced-precision query wires are not ported yet: they raise
+NOT_IMPLEMENTED_ERROR, never answer differently.
 
 Filter semantics follow the TPU package: filters without `@distance` fold
 into the scan mask. Numeric, bool and geo filters evaluate on the device
@@ -268,9 +271,9 @@ class Table:
                columnar: bool = False,
                ) -> Tuple[List[Dict[str, Any]], List[Any]]:
         """Returns (result rows, facets). query_data is a numpy [D] array
-        for dense fields (a SparseVector for sparse fields, which raises
-        NOT_IMPLEMENTED_ERROR here). columnar=True (the REST query path, no
-        facets) returns a ColumnarRows instead of row dicts."""
+        for dense fields or a SparseVector for sparse fields. columnar=True
+        (the REST query path, no facets) returns a ColumnarRows instead of
+        row dicts."""
         if field_name not in self.field_type_map:
             raise VectorDBError(DB_UNEXPECTED_ERROR,
                                 "Field name not found: " + field_name)
@@ -286,19 +289,14 @@ class Table:
             raise VectorDBError(
                 USER_ERROR,
                 "Query vector and field vector type must be both dense or sparse")
-        if is_sparse_query:
-            raise _not_ported("Sparse vector search")
 
         metric = self.metric_map[field_name]
         if metric == MetricType.COSINE:
-            q = np.asarray(query_data, dtype=np.float32)
-            s = float(np.dot(q, q))
-            if s > 1e-10:
-                query_data = q / np.float32(np.sqrt(s))
+            query_data = self._normalized(query_data)
 
         with metrics.timer("search"):
             ids, dists = self._search_ids(field_name, query_data, limit,
-                                          filter_nodes)
+                                          filter_nodes, is_sparse_query)
         metrics.inc("queries_total")
 
         facets: List[Any] = []
@@ -313,8 +311,18 @@ class Table:
             facets.append(fe.run(self.segment, ids, dists))
         return rows, facets
 
+    @staticmethod
+    def _normalized(query):
+        """A COSINE query scaled to unit length (sparse or dense; a query of
+        squared norm 1e-10 or less is left as it is)."""
+        if isinstance(query, sparse_ops.SparseVector):
+            return query.normalized()
+        q = np.asarray(query, dtype=np.float32)
+        s = float(np.dot(q, q))
+        return q / np.float32(np.sqrt(s)) if s > 1e-10 else q
+
     def _search_ids(self, field_name: str, query_data, limit: int,
-                    filter_nodes: List[ExprNode]
+                    filter_nodes: List[ExprNode], is_sparse: bool
                     ) -> Tuple[np.ndarray, np.ndarray]:
         seg = self.segment
         n = seg.record_number
@@ -326,15 +334,17 @@ class Table:
         uses_distance = compiler.uses_distance() if compiler else False
 
         # Pre-search mask: alive rows, plus pushed-down filters when they
-        # don't reference @distance. Numeric / bool / geo filters compose
-        # a device mask over device-resident columns (the validity mask
-        # stays cacheable); every other filter folds into the host mask.
+        # don't reference @distance. Numeric / bool / geo filters of dense
+        # queries compose a device mask over device-resident columns (the
+        # validity mask stays cacheable); every other filter, and every
+        # filter of a sparse query, folds into the host mask.
         valid = seg.valid_mask()
         filter_ctx = None
         boost = 1
         pre_filter = False
         if compiler is not None and not uses_distance:
-            filter_ctx = self._device_filter(filter_nodes, compiler)
+            if not is_sparse:
+                filter_ctx = self._device_filter(filter_nodes, compiler)
             if filter_ctx is None:
                 # Host fold (strings / LIKE / IN). The match count is known
                 # here for free, so the graph path's selectivity routing
@@ -353,14 +363,29 @@ class Table:
         else:
             k_cand = min(limit, n)
 
-        # Batchable: unfiltered queries, @distance post-filters (the search
-        # itself is unfiltered) and device-compiled filters; host-folded
-        # filters change `valid` per query and stay unbatched.
-        plain = compiler is None or uses_distance or filter_ctx is not None
-        ids, dists = self._dense_search(
-            field_name, query_data, valid, self.metric_map[field_name],
-            k_cand, mask_cacheable=plain, batchable=plain,
-            filter_ctx=filter_ctx, boost=boost, pre_filter=pre_filter)
+        metric = self.metric_map[field_name]
+        if is_sparse:
+            run = getattr(self, "device_executor", None)
+            # Unfiltered (or @distance post-filtered): `valid` is the
+            # validity mask, cached on the device per mutation version.
+            plain = compiler is None or uses_distance
+            if run is not None:
+                ids, dists = run.run(self._sparse_scan, field_name,
+                                     query_data, valid, metric, k_cand,
+                                     plain)
+            else:
+                ids, dists = self._sparse_scan(field_name, query_data,
+                                               valid, metric, k_cand, plain)
+        else:
+            # Batchable: unfiltered queries, @distance post-filters (the
+            # search itself is unfiltered) and device-compiled filters;
+            # host-folded filters change `valid` per query and stay
+            # unbatched.
+            plain = compiler is None or uses_distance or filter_ctx is not None
+            ids, dists = self._dense_search(
+                field_name, query_data, valid, metric, k_cand,
+                mask_cacheable=plain, batchable=plain, filter_ctx=filter_ctx,
+                boost=boost, pre_filter=pre_filter)
 
         # Post-filter for @distance predicates (reference top-L scan,
         # vec_search_executor.cpp:906-927).
@@ -1054,16 +1079,17 @@ class Table:
         last = int(np.max(np.nonzero(keep_cols)[0])) + 1 if keep_cols.any() else 0
         return out_ids[:, :last].astype(np.int64), out_d[:, :last]
 
-    def _device_mask(self, store, valid: np.ndarray, row_start: int,
+    def _device_mask(self, size: int, device: torch.device,
+                     valid: np.ndarray, row_start: int,
                      cacheable: bool) -> torch.Tensor:
-        """Upload (or reuse) the [capacity] bool scan mask. Pure-validity
-        masks are cached on the device keyed by the segment mutation
-        version."""
+        """Upload (or reuse) the [size] bool scan mask: `valid` over rows
+        [row_start, size), False elsewhere. Pure-validity masks are cached
+        on the device keyed by the segment mutation version."""
         cache = getattr(self, "_mask_cache", None)
         if cache is None:
             cache = self._mask_cache = {}
         ver = self.segment.mutation_version
-        key = (store.capacity, row_start)
+        key = (size, row_start)
         if cacheable:
             hit = cache.get(key)
             if hit is not None and hit[0] == ver:
@@ -1073,9 +1099,10 @@ class Table:
             # version, and caching that stale mask under the new key would
             # hide the new rows from every later query at this version.
             valid = self.segment.valid_mask()
-        mask = np.zeros(store.capacity, dtype=bool)
-        mask[row_start:len(valid)] = valid[row_start:]
-        dm = torch.from_numpy(mask).to(store.buf.device)
+        mask = np.zeros(size, dtype=bool)
+        m = min(len(valid), size)
+        mask[row_start:m] = valid[row_start:m]
+        dm = torch.from_numpy(mask).to(device)
         if cacheable:
             cache[key] = (ver, dm)
         return dm
@@ -1088,7 +1115,8 @@ class Table:
         device filter when present: a [capacity] bool tensor on the store's
         device (the flat-serve program hands the partial-min kernel its f32
         copy, beam search its int32 one)."""
-        dm = self._device_mask(store, valid, row_start, mask_cacheable)
+        dm = self._device_mask(store.capacity, store.buf.device, valid,
+                               row_start, mask_cacheable)
         if filter_ctx is None:
             return dm
         return filter_ctx.device.mask(dm, store.capacity)
@@ -1122,9 +1150,134 @@ class Table:
         ids[~np.isfinite(d)] = -1
         return ids, d.astype(np.float64)
 
-    def hybrid_search(self, *args, **kwargs):
-        raise _not_ported("Hybrid (dense + sparse) search")
+    def _sparse_index(self, field_name: str) -> "sparse_ops.SparseColumnIndex":
+        """CSR snapshot of a sparse column, cached by mutation version (its
+        device arrays are uploaded once per version)."""
+        cache = getattr(self, "_sparse_cache", None)
+        if cache is None:
+            cache = self._sparse_cache = {}
+        ver = self.segment.mutation_version
+        hit = cache.get(field_name)
+        if hit is not None and hit[0] == ver:
+            return hit[1]
+        cache.pop(field_name, None)  # free the old snapshot's device arrays
+        idx = sparse_ops.SparseColumnIndex(
+            self.segment.sparse_cols[field_name],
+            self.segment.record_number)
+        cache[field_name] = (ver, idx)
+        return idx
 
+    def _sparse_scan(self, field_name: str, query, valid: np.ndarray,
+                     metric: MetricType, k: int, mask_cacheable: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Sparse search: every row scored on the device, the k +
+        RERANK_SLACK smallest distances of the rows `valid` keeps selected
+        there (torch.topk, the rest at +inf), then the exact merge-join
+        distances of those candidates on the host, ascending (ties to the
+        lower row id). Rows without a vector rank last (+inf).
+        mask_cacheable: `valid` is the pure validity mask, whose device
+        copy is reused while the mutation version holds."""
+        n_valid = int(np.count_nonzero(valid))
+        if n_valid == 0:
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64)
+        index = self._sparse_index(field_name)
+        d = index.device_scores(query, metric)
+        keep = self._device_mask(index.n_rows, d.device, valid, 0,
+                                 mask_cacheable)
+        d = d.masked_fill(~keep, float("inf"))
+        k = min(k, n_valid)
+        kk = min(k + RERANK_SLACK, n_valid)
+        cand = np.sort(torch.topk(d, kk, largest=False, sorted=False)
+                       .indices.cpu().numpy()).astype(np.int64)
+        col = self.segment.sparse_cols[field_name]
+        exact = np.asarray([
+            sparse_ops.distance(query, col[r], metric)
+            if col[r] is not None else np.inf
+            for r in cand], dtype=np.float64)
+        order = np.argsort(exact, kind="stable")[:k]
+        return cand[order], exact[order]
+
+    # ------------------------------------------------------------------
+    # Hybrid search: dense + sparse fusion re-ranking (no reference
+    # equivalent: the reference leaves fusion to clients; this engine
+    # fuses per-field candidate sets on the server).
+    # ------------------------------------------------------------------
+
+    def hybrid_search(self, subqueries: List[Dict[str, Any]], limit: int,
+                      filter_nodes: List[ExprNode], with_distance: bool,
+                      query_fields: List[str],
+                      rerank: str = "rrf",
+                      facet_executors: Optional[List[FacetExecutor]] = None
+                      ) -> Tuple[List[Dict[str, Any]], List[Any]]:
+        """Fuse top-k result sets from several vector fields.
+
+        subqueries: [{"field": name, "vector": dense list | sparse dict,
+                      "weight": float}]; each field is searched for a pool
+        of max(4 * limit, limit + RERANK_SLACK) rows through its own path
+        (dense or sparse, with the filter). rerank: "rrf" (reciprocal-rank
+        fusion, k0 = 60) or "weighted" (min-max-normalized similarity,
+        weight-summed). Padding (-1) is dropped before fusion; an id's
+        contributions are summed over the subqueries, the largest sums win
+        (ties to the lower id) and the fused score is reported as
+        @distance, negated so smaller is better. Contributions are computed
+        in float64 from the reported distances (the JAX package computes a
+        weighted similarity in the distances' dtype, float32 for a dense
+        field), so the fused scores follow from the per-field results
+        exactly.
+        """
+        if not subqueries:
+            raise VectorDBError(USER_ERROR, "Hybrid query needs subqueries.")
+        pool = max(limit * 4, limit + RERANK_SLACK)
+        all_ids: List[np.ndarray] = []
+        all_contrib: List[np.ndarray] = []
+        for sq in subqueries:
+            field = sq.get("field", "")
+            weight = float(sq.get("weight", 1.0))
+            vec = sq.get("vector")
+            if field not in self.field_type_map:
+                raise VectorDBError(DB_UNEXPECTED_ERROR,
+                                    "Field name not found: " + field)
+            if isinstance(vec, dict):
+                query: Any = sparse_ops.SparseVector.from_json(vec)
+            else:
+                query = np.asarray(vec, dtype=np.float32)
+            if self.metric_map[field] == MetricType.COSINE:
+                query = self._normalized(query)
+            ids, dists = self._search_ids(
+                field, query, pool, filter_nodes,
+                isinstance(query, sparse_ops.SparseVector))
+            ids = np.asarray(ids, dtype=np.int64)
+            dists = np.asarray(dists, dtype=np.float64)
+            if rerank == "weighted":
+                finite = np.isfinite(dists)
+                if finite.any():
+                    lo, hi = dists[finite].min(), dists[finite].max()
+                    rng = (hi - lo) or 1.0
+                    sims = 1.0 - (dists - lo) / rng
+                else:
+                    sims = np.zeros_like(dists)
+                contrib = weight * sims
+            else:  # rrf, k0 = 60
+                contrib = weight / (60.0 + np.arange(len(ids),
+                                                     dtype=np.float64) + 1)
+            keep = ids >= 0  # drop under-full padding before fusion
+            all_ids.append(ids[keep])
+            all_contrib.append(contrib[keep])
+        # Vectorized fusion: each id's contributions summed across the
+        # subqueries, in subquery order.
+        uniq, inv = np.unique(np.concatenate(all_ids), return_inverse=True)
+        sums = np.zeros(len(uniq), dtype=np.float64)
+        np.add.at(sums, inv, np.concatenate(all_contrib))
+        top = np.argsort(-sums, kind="stable")[:limit]
+        ids = uniq[top]
+        fused = -sums[top]
+        facets: List[Any] = []
+        rows: List[Dict[str, Any]] = []
+        if query_fields or not facet_executors:
+            rows = self.project(query_fields, ids, with_distance, fused)
+        for fe in facet_executors or []:
+            facets.append(fe.run(self.segment, ids, fused))
+        return rows, facets
 
     # ------------------------------------------------------------------
     # Attribute-only search (reference SearchByAttribute,
@@ -1359,18 +1512,12 @@ class Table:
 
     def _rebuild_impl(self) -> Status:
         """Build (leader) or reload (follower) the graph of every dense
-        field whose row count changed, then auto-tune and warm it up. A
-        build at IvfKnnThreshold rows or more needs ops/ivf.ivf_knn, which
-        is not ported: NOT_IMPLEMENTED_ERROR, before anything is written.
+        field whose row count changed, then auto-tune and warm it up.
         Build errors propagate (the JAX package logs and swallows them)."""
         n = self.segment.record_number
         todo = [f.name for f in self.schema.fields
                 if f.is_dense_vector() and n >= self.config.minimal_graph_size
                 and self._graph_built_rows[f.name] != n]
-        if self.is_leader and todo and n >= self.config.ivf_knn_threshold:
-            return _not_ported(
-                f"The IVF KNN graph build for {n} rows (IvfKnnThreshold "
-                f"{self.config.ivf_knn_threshold}, ops/ivf.ivf_knn)").status
         if self.is_leader:
             self.segment.save(self.segment_path)
             self.wal.clean_up_old_files()
@@ -1483,3 +1630,4 @@ class Table:
         self.segment.release_device()
         self._mask_cache = {}
         self._device_filter_cache = {}
+        self._sparse_cache = {}
