@@ -9,9 +9,10 @@ on the card: the partial-min scan at the flat-serve shape (B = 8192
 queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
 (B = 1,024, N = 1,048,576, exclude_self, n_valid); the row gather, bit for
 bit, at every row width the main path gathers (gather.MAIN_PATH_SHAPES:
-bf16 store rows, int8 fused rows, int32 adjacency rows, f32 re-rank rows,
-f32 scalars, the build's int8 store rows, a sparse query's f32 scatter, the
-IVF build's bf16 candidate rows). Each case prints its time beside its
+bf16 store rows, int8 fused rows, int32 adjacency rows, a shard's int32
+adjacency rows, f32 re-rank rows, f32 scalars, the build's int8 store
+rows, a sparse query's f32 scatter, the IVF build's bf16 candidate rows).
+Each case prints its time beside its
 bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
 tensor-core rate; the share of the bound), the plain version's time, and a
@@ -49,7 +50,15 @@ read just after (gathers also by row width):
   - IVF build: 3,000,000 x 128 clustered rows, vdb.rebuild() at the
     default IvfKnnThreshold (ops/ivf.ivf_knn builds the KNN graph), its
     neighbour recall@64 against the exact top-64 on the card, 16,384
-    grouped and 264 single queries.
+    grouped and 264 single queries;
+  - sharded (after the IVF database is unloaded): ShardCount=4 over four
+    shards on this card (parallel.set_engine_mesh), 4,000,000 x 128
+    clustered rows (seed 4) with `cat`: 64 flat single queries before the
+    build, vdb.rebuild() (one graph a shard: exact KNN on the partial-min
+    kernel, pruning on the gather kernel), 16,384 grouped and 256 single
+    queries (and a profiled grouped program and 20 single queries), 64
+    under `cat < 5`, an insert of 2,048 rows found first from the flat
+    tail, then an unload and a load of the sharded graph.
 Results are checked against exact (masked) oracles: recall@10 >= 0.99
 (0.95 for the widened-beam filters; IVF neighbour recall@64 >= 0.90),
 every returned row passes its filter, distances equal an f32 (sparse:
@@ -108,6 +117,11 @@ REST_SPARSE, REST_HYBRID = 64, 64
 # lists are held to the exact top-64, grouped and single queries.
 IVF_N, IVF_SAMPLE, IVF_Q, IVF_SINGLE = 3_000_000, 4096, 16_384, 256
 IVF_RECALL_FLOOR = 0.90  # tests/test_ivf_knn.py holds ivf_knn to it
+# Sharded phase: rows over SHARD_COUNT shards on the one card (1M a shard,
+# the graph slice's scale), queries grouped, single, before the build and
+# under `cat < 5`, rows inserted after the build.
+SHARD_N, SHARD_COUNT, SHARD_Q = 4_000_000, 4, 16_384
+SHARD_SINGLE, SHARD_PRE, SHARD_FILTERED, SHARD_INSERT = 256, 64, 64, 2048
 # Both sides add exact bf16 x bf16 products in f32 (the kernel on the tensor
 # cores), in different orders: an order changes a sum of D terms by at most
 # about D * 2^-24 of the sum of magnitudes, which |q|^2 + |x|^2 bounds.
@@ -1492,6 +1506,226 @@ def run_ivf(dev: torch.device) -> dict:
     return out
 
 
+def _single_queries(qs: np.ndarray, want: np.ndarray, flt: str = "",
+                    keep=None, warm: int = 8) -> dict:
+    """vdb.query of each query (limit 10, `flt`): p50 / p99 after `warm`
+    warm-up queries, recall@10 against `want`, every row passing `keep`,
+    launch counts (set to 0 just before, read just after)."""
+    for q in qs[:warm]:
+        vdb.query("docs", "Emb", q.tolist(), ["ID"], 10, flt, True)
+    torch.cuda.synchronize()
+    reset_counts()
+    lat, overlap = [], []
+    for i, q in enumerate(qs):
+        t0 = time.perf_counter()
+        code, hits = vdb.query("docs", "Emb", q.tolist(), ["ID"], 10, flt,
+                               True)
+        lat.append(time.perf_counter() - t0)
+        ids = [h["ID"] for h in hits]
+        if code != 0 or len(ids) != 10:
+            raise AssertionError(f"single query {i} {flt!r}: {hits}")
+        if keep is not None and not keep[ids].all():
+            raise AssertionError(f"single query {i}: a row fails {flt!r}")
+        overlap.append(len(set(ids) & set(want[i].tolist())))
+    lat = np.asarray(lat) * 1e3
+    return {"queries": len(qs), "filter": flt, "counts": read_counts(),
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "recall_at_10": float(np.sum(overlap) / (10.0 * len(qs))),
+            "min_overlap": int(np.min(overlap))}
+
+
+def run_sharded(dev: torch.device) -> dict:
+    """The sharded data plane on one card: ShardCount=4 over
+    set_engine_mesh(make_mesh([cuda:0] * 4)), SHARD_N x 128 clustered rows
+    (seed 4, 1M a shard in cap_s 1,048,576 slots) with `cat` (INT 0-9).
+    SHARD_PRE flat queries through vdb.query before the build; vdb.rebuild()
+    (each shard's exact KNN on the partial-min kernel, pruning on the
+    gather kernel; phase seconds summed over the shards) and its auto-tune;
+    SHARD_Q grouped queries and SHARD_SINGLE single queries against the
+    exact oracle over all rows; `cat < 5` through the device filter; an
+    insert of SHARD_INSERT rows that single queries find first (the flat
+    tail); an unload and a load that finds the sharded graph; peak device
+    memory."""
+    from vectordb_tpu_torch.parallel import engine, make_mesh, set_engine_mesh
+
+    x, queries = make_clustered(SHARD_N, 128, SHARD_Q, seed=4)
+    rng = np.random.default_rng(5)
+    cat = rng.integers(0, 10, SHARD_N)
+    out = {"rows": SHARD_N, "dim": 128, "shards": SHARD_COUNT,
+           "batch": GRAPH_BATCH, "group": 4}
+    set_engine_mesh(make_mesh([dev] * SHARD_COUNT))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sharded")
+            assert vdb.update_config({"ShardCount": SHARD_COUNT,
+                                      "QueryGroupSize": 4,
+                                      "FusedTraversal": "auto"}) == 0
+            assert vdb.load_db("sharded", path,
+                               vector_scale=SHARD_N + SHARD_INSERT) == 0
+            vdb.use_db("sharded")
+            vdb.create_table("docs", [
+                {"name": "ID", "dataType": "INT", "primaryKey": True},
+                {"name": "cat", "dataType": "INT"},
+                {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": 128,
+                 "metricType": "EUCLIDEAN"}])
+            t0 = time.perf_counter()
+            code, res = vdb.insert_columns("docs", {
+                "ID": np.arange(SHARD_N), "cat": cat, "Emb": x})
+            out["ingest_s"] = time.perf_counter() - t0
+            if code != 0 or res["inserted"] != SHARD_N:
+                raise AssertionError(f"insert_columns: {code} {res}")
+            table = vdb._db.databases["sharded"].tables["docs"]
+            if table.mesh is None or table.mesh.size != SHARD_COUNT:
+                raise AssertionError(f"the table is not sharded: {table.mesh}")
+
+            # Exact oracles over all rows, while x is on the card.
+            x_dev = torch.from_numpy(x).to(dev)
+            n_rec = min(2048, SHARD_Q)
+            want = oracle_top10_gpu(x_dev, x, queries[:n_rec])
+            keep_cat = cat < 5
+            want_cat = masked_oracle_gpu(x_dev, x, queries[:SHARD_FILTERED],
+                                         keep_cat)
+            del x_dev
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+            # Before the build: the sharded flat scan.
+            out["pre_build"] = _single_queries(queries[:SHARD_PRE],
+                                               want[:SHARD_PRE])
+            log(f"sharded pre-build queries: {json.dumps(out['pre_build'])}")
+            if out["pre_build"]["recall_at_10"] < RECALL_FLOOR:
+                raise AssertionError("sharded flat recall@10 "
+                                     f"{out['pre_build']['recall_at_10']}")
+
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            code = vdb.rebuild()
+            torch.cuda.synchronize()
+            out["rebuild_s"] = time.perf_counter() - t0
+            out["build_counts"] = read_counts()
+            graph = table.sharded_fields["Emb"].graph
+            if code != 0 or graph is None or graph.num_rows != SHARD_N:
+                raise AssertionError(f"rebuild: code {code}, graph {graph}")
+            if (out["build_counts"]["partial_min"] <= 0
+                    or out["build_counts"]["gather"] <= 0):
+                raise AssertionError("the sharded build did not launch both "
+                                     f"kernels: {out['build_counts']}")
+            out["build_phase_s"] = graph.build_seconds
+            out["tuned"] = {k: table._tuned_report["Emb"][k]
+                            for k in ("ef", "iters", "recall", "id_recall",
+                                      "ood_recall")}
+            out["tune_rungs"] = len(table._tuned_report["Emb"]["tried"])
+            log(f"sharded build phases (s, summed over the shards): "
+                f"{json.dumps(graph.build_seconds)}; rebuild "
+                f"{out['rebuild_s']:.2f} s; tuned {json.dumps(out['tuned'])}")
+
+            valid = table.segment.valid_mask()
+            table.grouped_dense_search("Emb", queries[:GRAPH_BATCH * 4 + 1],
+                                       valid, MetricType.EUCLIDEAN, 10,
+                                       batch=GRAPH_BATCH)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            ids, dists = table.grouped_dense_search(
+                "Emb", queries, valid, MetricType.EUCLIDEAN, 10,
+                batch=GRAPH_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = {"qps": SHARD_Q / wall, "wall_s": wall,
+                 "counts": read_counts()}
+            if r["counts"]["gather"] <= 0:
+                raise AssertionError("sharded grouped queries never launched "
+                                     "the gather kernel")
+            if ids.shape != (SHARD_Q, 10) or not np.isfinite(dists).all():
+                raise AssertionError(f"grouped result shape {ids.shape}")
+            r["recall_at_10"] = float(np.mean(
+                [len(set(a) & set(b)) / 10.0
+                 for a, b in zip(ids[:n_rec], want)]))
+            if r["recall_at_10"] < RECALL_FLOOR:
+                raise AssertionError(f"sharded grouped recall@10 "
+                                     f"{r['recall_at_10']}")
+            exact = ((x[ids] - queries[:, None, :]) ** 2).sum(2)
+            if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
+                raise AssertionError("sharded distances differ from f32 "
+                                     "recomputation")
+            out["grouped"] = r
+            log(f"sharded grouped: {json.dumps(r)}")
+            out["profile"] = {
+                "grouped": device_profile(lambda: table.grouped_dense_search(
+                    "Emb", queries[:GRAPH_BATCH * 4], valid,
+                    MetricType.EUCLIDEAN, 10, batch=GRAPH_BATCH)),
+                "single": device_profile(lambda: [
+                    vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10,
+                              "", True) for i in range(20)])}
+            log(f"sharded profile: {json.dumps(out['profile'])}")
+
+            out["single"] = _single_queries(queries[:SHARD_SINGLE],
+                                            want[:SHARD_SINGLE])
+            log(f"sharded single queries: {json.dumps(out['single'])}")
+            if out["single"]["recall_at_10"] < RECALL_FLOOR:
+                raise AssertionError("sharded single recall@10 "
+                                     f"{out['single']['recall_at_10']}")
+
+            out["filtered"] = _single_queries(
+                queries[:SHARD_FILTERED], want_cat, "cat < 5", keep_cat,
+                warm=2)
+            log(f"sharded cat < 5: {json.dumps(out['filtered'])}")
+            if out["filtered"]["recall_at_10"] < WIDENED_RECALL_FLOOR:
+                raise AssertionError("sharded filtered recall@10 "
+                                     f"{out['filtered']['recall_at_10']}")
+
+            # Rows inserted after the build: near-copies of stored rows
+            # that single queries find first (the per-shard flat tail).
+            x_new = (x[rng.integers(0, SHARD_N, SHARD_INSERT)]
+                     + 0.05 * rng.normal(size=(SHARD_INSERT, 128))
+                     ).astype(np.float32)
+            code, res = vdb.insert_columns("docs", {
+                "ID": np.arange(SHARD_N, SHARD_N + SHARD_INSERT),
+                "cat": np.arange(SHARD_INSERT) % 10, "Emb": x_new})
+            if code != 0 or res["inserted"] != SHARD_INSERT:
+                raise AssertionError(f"insert after the build: {res}")
+            torch.cuda.synchronize()
+            reset_counts()
+            for j in range(0, SHARD_INSERT, SHARD_INSERT // 64):
+                _, hits = vdb.query("docs", "Emb", x_new[j].tolist(), ["ID"],
+                                    10, "", True)
+                if hits[0]["ID"] != SHARD_N + j:
+                    raise AssertionError(f"tail row {SHARD_N + j}: {hits[:2]}")
+            out["insert_counts"] = read_counts()
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+            # Unload and load: the sharded graph comes back from its .npz.
+            assert vdb.unload_db("sharded") == 0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            assert vdb.load_db("sharded", path,
+                               vector_scale=SHARD_N + SHARD_INSERT) == 0
+            vdb.use_db("sharded")
+            out["load_s"] = time.perf_counter() - t0
+            table = vdb._db.databases["sharded"].tables["docs"]
+            g = table.sharded_fields["Emb"].graph
+            if g is None or g.num_rows != SHARD_N:
+                raise AssertionError(f"the sharded graph did not load: {g}")
+            torch.cuda.synchronize()
+            reset_counts()
+            for row in (42, SHARD_N - 1, SHARD_N + 7):
+                v = x[row] if row < SHARD_N else x_new[row - SHARD_N]
+                _, hits = vdb.query("docs", "Emb", v.tolist(), ["ID"], 10, "",
+                                    True)
+                if hits[0]["ID"] != row:
+                    raise AssertionError(f"after the load, X[{row}]: "
+                                         f"{hits[:2]}")
+            out["reload_counts"] = read_counts()
+            vdb.unload_db("sharded")
+    finally:
+        engine._reset_for_tests()
+        assert vdb.update_config({"ShardCount": 0}) == 0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1528,6 +1762,10 @@ def main() -> int:
     iv = run_ivf(dev)
     iv["phase_s"] = time.perf_counter() - t0
     log(f"ivf: {json.dumps(iv)}")
+    t0 = time.perf_counter()
+    sh = run_sharded(dev)
+    sh["phase_s"] = time.perf_counter() - t0
+    log(f"sharded: {json.dumps(sh)}")
     # Launch counts of every main-path phase (the CLI's child process
     # aside), and the gathers by the bytes of a table row.
     phases = {"slice_single": sl["single_counts"],
@@ -1547,13 +1785,21 @@ def main() -> int:
               "rest_sparse_hybrid": sp["rest"]["counts"],
               "ivf_build": iv["build_counts"],
               "ivf_grouped": iv["grouped"]["counts"],
-              "ivf_single": iv["single_counts"]}
+              "ivf_single": iv["single_counts"],
+              "sharded_pre_build": sh["pre_build"]["counts"],
+              "sharded_build": sh["build_counts"],
+              "sharded_grouped": sh["grouped"]["counts"],
+              "sharded_single": sh["single"]["counts"],
+              "sharded_filtered": sh["filtered"]["counts"],
+              "sharded_insert": sh["insert_counts"],
+              "sharded_reload": sh["reload_counts"]}
     by_width = {}
     for c in phases.values():
         for rb, k in c["gather_by_row_bytes"].items():
             by_width[rb] = by_width.get(rb, 0) + k
     log(f"launches by phase: {json.dumps(phases)}")
-    for phase, widths in (("sparse_queries", (4,)), ("ivf_build", (256,))):
+    for phase, widths in (("sparse_queries", (4,)), ("ivf_build", (256,)),
+                          ("sharded_grouped", (256,))):
         if not all(phases[phase]["gather_by_row_bytes"].get(w, 0) > 0
                    for w in widths):
             raise AssertionError(f"{phase}: no gathers of {widths}-byte rows")

@@ -680,3 +680,98 @@ def test_hybrid_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         np.testing.assert_allclose([r["@distance"] for r in g],
                                    [r["@distance"] for r in c],
                                    rtol=1e-5, atol=1e-7)
+
+
+def _sharded_run(device_list, tmp_path, x, queries, probe):
+    """A ShardCount table over `device_list` (one shard each): launch counts
+    of its build and of its grouped queries, flat single-query ids before
+    the build, grouped ids and distances after it."""
+    from vectordb_tpu_torch.parallel import make_mesh, set_engine_mesh
+
+    vdb._reset_for_tests()
+    vdb.set_device(device_list[0].split(":")[0])
+    set_engine_mesh(make_mesh(device_list))
+    assert vdb.update_config({"ShardCount": len(device_list),
+                              "AutoTuneSearch": False,
+                              "QueryGroupSize": 2}) == 0
+    name = device_list[0].replace(":", "")
+    assert vdb.load_db(name, str(tmp_path / name),
+                       vector_scale=len(x)) == 0
+    vdb.use_db(name)
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": x.shape[1],
+         "metricType": "EUCLIDEAN"}])
+    vdb.insert_columns("t", {"ID": np.arange(len(x)), "Emb": x})
+    table = vdb._db.databases[name].tables["t"]
+    flat = [[r["ID"] for r in vdb.query("t", "Emb", x[i].tolist(), ["ID"],
+                                        10)[1]] for i in probe]
+    partial_min.reset_launches()
+    gather.reset_launches()
+    assert vdb.rebuild() == 0
+    build = (partial_min.launches, gather.launches)
+    gather.reset_launches()
+    ids, d = table.grouped_dense_search(
+        "Emb", queries, table.segment.valid_mask(), MetricType.EUCLIDEAN, 10,
+        batch=256)
+    out = {"flat": flat, "build": build, "query_gathers": gather.launches,
+           "ids": ids, "d": d, "shards": table.mesh.size,
+           "devices": {str(b.device) for b in
+                       table.sharded_fields["Emb"].store.buf}}
+    vdb.unload_db(name)
+    return out
+
+
+def _clustered_rows(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(300, dim)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 300, n)]
+         + rng.normal(size=(n, dim)).astype(np.float32))
+    queries = x[rng.integers(0, n, 600)] + 0.1 * rng.normal(
+        size=(600, dim)).astype(np.float32)
+    return x, queries
+
+
+@pytest.mark.gpu
+def test_sharded_table_on_one_card_matches_cpu_shards(cuda_device, tmp_path):
+    """4 shards on cuda:0 against the same table on 4 CPU shards of the
+    port: the card's build launches partial-min (each shard's 8,192-slot
+    exact KNN) and the gather (pruning), its queries the gather; the same
+    flat ids, and the same grouped ids on 99% of queries (the two builds
+    may break KNN near-ties apart), recall and exact distances."""
+    n, dim = 30000, 128
+    x, queries = _clustered_rows(n, dim, seed=21)
+    probe = [0, 7, 12345, n - 1]
+    card = _sharded_run(["cuda:0"] * 4, tmp_path, x, queries, probe)
+    cpu = _sharded_run(["cpu"] * 4, tmp_path, x, queries, probe)
+    assert card["shards"] == 4 and card["devices"] == {"cuda:0"}
+    assert card["build"][0] > 0 and card["build"][1] > 0
+    assert card["query_gathers"] > 0
+    assert cpu["build"] == (0, 0)
+    assert card["flat"] == cpu["flat"]
+    same = np.mean([set(a) == set(b)
+                    for a, b in zip(card["ids"], cpu["ids"])])
+    assert same >= 0.99, same
+    hits = 0
+    for i in range(0, len(queries), 6):
+        dd = ((x - queries[i]) ** 2).sum(1)
+        hits += len(set(card["ids"][i].tolist())
+                    & set(np.argsort(dd)[:10].tolist()))
+        np.testing.assert_allclose(card["d"][i], dd[card["ids"][i]],
+                                   rtol=1e-5)
+    assert hits / (10 * len(range(0, len(queries), 6))) >= 0.99
+
+
+@pytest.mark.gpu
+def test_sharded_table_over_two_cards(cuda_device, tmp_path):
+    """One shard a card: the merge copies the second card's candidates to
+    the first (needs two cards; skips on one)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    n, dim = 20000, 128
+    x, queries = _clustered_rows(n, dim, seed=22)
+    two = _sharded_run(["cuda:0", "cuda:1"], tmp_path, x, queries, [3, 99])
+    one = _sharded_run(["cuda:0"] * 2, tmp_path, x, queries, [3, 99])
+    assert two["devices"] == {"cuda:0", "cuda:1"}
+    assert two["flat"] == one["flat"]
+    np.testing.assert_array_equal(two["ids"], one["ids"])

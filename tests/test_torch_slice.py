@@ -157,8 +157,9 @@ def test_delete_then_query_matches_jax(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path):
-    """The reduced-precision query wires and the sharded plane are not
-    ported: they raise NOT_IMPLEMENTED_ERROR."""
+    """The reduced-precision query wires are not ported: they raise
+    NOT_IMPLEMENTED_ERROR. The sharded plane is (parallel/): ShardCount 2
+    shards a new table."""
     n = 10_000
     _load(tvdb, tmp_path / "t", "t", n, 8, "EUCLIDEAN", seed=0)
     t = tvdb._db.databases["db"].tables["t"]
@@ -167,12 +168,15 @@ def test_not_ported_paths_raise(tmp_path):
         with pytest.raises(Exception, match="not ported"):
             t._query_wire("Emb")
     assert tvdb.update_config({"ShardCount": 2}) == 0
-    with pytest.raises(Exception, match="not ported"):
-        tvdb.create_table("s", _fields(8, "EUCLIDEAN"))
+    tvdb.create_table("s", _fields(8, "EUCLIDEAN"))
+    s = tvdb._db.databases["db"].tables["s"]
+    assert s.mesh is not None and s.mesh.size == 2
+    assert set(s.sharded_fields) == {"Emb"}
+    assert not t.sharded_fields  # created before ShardCount changed
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, vectordb_tpu_torch; "
+    code = ("import sys, vectordb_tpu_torch, vectordb_tpu_torch.parallel; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'vectordb_tpu' or m.startswith("
             "'vectordb_tpu.') for m in sys.modules)")

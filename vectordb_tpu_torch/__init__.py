@@ -12,9 +12,11 @@ row of a sparse column scored on the device (ops/sparse.py). Its two
 hand-written CUDA kernels are the partial-min scan (csrc/partial_min.cu)
 and the row gather of traversal, of the IVF build and of sparse scoring
 (csrc/gather_rows.cu, called through the PyTorch operator
-torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). Parts of the TPU
-package not ported yet (sharding, the reduced-precision query wires) raise
-NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
+torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). With ShardCount >= 2
+a table's dense fields are sharded over a list of devices (parallel/: one
+process drives every shard; `parallel.set_engine_mesh` can place several
+shards on one card). The reduced-precision query wires are not ported yet
+and raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
 
 A data directory written by either package opens in the other.
 
@@ -218,13 +220,16 @@ def update_config(cfg: Dict[str, Any]) -> int:
 
 
 def _reset_for_tests() -> None:
-    """Stop and drop the module-global engine and ask for the CUDA device
-    again (test isolation only)."""
+    """Stop and drop the module-global engine, forget the engine mesh and
+    ask for the CUDA device again (test isolation only)."""
     global _db, _db_name
+    from .parallel import engine
+
     if _db is not None:
         _db.stop()
     _db = None
     _db_name = ""
+    engine._reset_for_tests()
     set_device("cuda")
 
 

@@ -54,7 +54,8 @@ class Config:
         # Write WAL insert entries as the reference's JSON-text lines
         # instead of binary column batches (slower; for interop).
         self.wal_text_format = False
-        # Multi-chip data plane; >= 2 is refused until parallel/ is ported.
+        # Sharded data plane (parallel/): >= 2 shards each dense field over
+        # the engine mesh (that many cards, or set_engine_mesh's).
         self.shard_count = 0
         self.ivf_knn_threshold = 3_000_000
         self.ivf_probes = 0

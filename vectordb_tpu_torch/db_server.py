@@ -164,7 +164,8 @@ class DBServer:
         artifacts (data_mvp.bin + ann_graph_<fid>.bin) inside the db path;
         the catalog is already the shared JSON format, so the reference
         engine opens the directory directly (rollback / two-way migration;
-        see compat.py)."""
+        see compat.py). Sharded graphs (ShardCount >= 2) are not exported:
+        rebuild on one device first."""
         from .errors import DB_NOT_FOUND
 
         db = self.get_db(db_name)

@@ -28,9 +28,11 @@ in float32 instead, which rounds DOUBLE columns and constants and can flip
 comparisons the host keeps (ROADMAP queue 3).
 
 Strings, LIKE, IN and @distance are not device-compilable and stay on the
-host (is_device_compilable returns False). The sharded plane's entry
-points of the JAX module (mask_from_cols over [S, cap_s] columns,
-replicated_consts) wait for parallel/ (ROADMAP queue 1).
+host (is_device_compilable returns False). On the sharded plane
+(parallel/engine.py) the same evaluator runs once a shard
+(`mask_from_cols` over that shard's columns, on its device; the constants
+go to each device once), where the JAX module evaluates [S, cap_s]
+float32 columns with `replicated_consts`.
 """
 from __future__ import annotations
 
@@ -245,10 +247,15 @@ def _compiled_for_structure(key: Tuple, field_order: Tuple[str, ...]):
 class DeviceFilter:
     """Device mask of one parsed filter (structure + constants) over one
     segment. Table keeps these per filter (256 entries): the constants go
-    to the device once, the columns are cached per mutation version on the
-    segment, and the evaluator per structure process-wide, so a repeated
-    filter transfers nothing to the device per query. Masks and match
-    counts are cached per (mutation version, validity mask)."""
+    to each device once, the columns are cached per mutation version on
+    the segment (on the sharded plane, by parallel/engine.py), and the
+    evaluator per structure process-wide, so a repeated filter transfers
+    nothing to the device per query. Masks and match counts are cached per
+    (mutation version, validity mask)."""
+
+    # Composed masks kept (one per validity tensor: one a shard on the
+    # sharded plane).
+    MASK_CACHE = 64
 
     def __init__(self, nodes: List[ExprNode], segment):
         self.nodes = nodes
@@ -257,38 +264,56 @@ class DeviceFilter:
         f64, i64 = collect_constants(nodes)
         self.consts = torch.from_numpy(
             np.stack([f64.view(np.int64), i64])).to(default_device())
+        self._consts_by_device = {self.consts.device: self.consts}
         self._fn = _compiled_for_structure(_structure_key(nodes),
                                            self.field_order)
         # id(valid_dev) -> (mutation version, valid_dev, mask): holding the
         # validity tensor keeps its id from being reused while cached.
         self._masks: Dict[int, Tuple[int, torch.Tensor, torch.Tensor]] = {}
-        self._count = None  # (mutation version, mask, count)
+        self._count = None  # (mutation version, masks, count)
 
-    def mask(self, valid_dev: torch.Tensor, capacity: int) -> torch.Tensor:
-        """valid_dev: [capacity] bool device tensor (pure validity). Returns
-        the [capacity] bool mask valid & filter on the same device."""
+    def _evaluate(self, valid_dev: torch.Tensor, cols_fn) -> torch.Tensor:
         ver = self.segment.mutation_version
         hit = self._masks.get(id(valid_dev))
         if hit is not None and hit[0] == ver and hit[1] is valid_dev:
             return hit[2]
-        cols = [self.segment.device_column(name, capacity)
-                for name in self.field_order]
-        out = self._fn(self.consts.to(valid_dev.device), valid_dev, cols)
-        if len(self._masks) >= 8:
+        dev = valid_dev.device
+        consts = self._consts_by_device.get(dev)
+        if consts is None:
+            consts = self._consts_by_device[dev] = self.consts.to(dev)
+        out = self._fn(consts, valid_dev, cols_fn())
+        if len(self._masks) >= self.MASK_CACHE:
             self._masks.clear()
         self._masks[id(valid_dev)] = (ver, valid_dev, out)
         return out
 
-    def match_count(self, mask_dev: torch.Tensor) -> int:
+    def mask(self, valid_dev: torch.Tensor, capacity: int) -> torch.Tensor:
+        """valid_dev: [capacity] bool device tensor (pure validity). Returns
+        the [capacity] bool mask valid & filter on the same device."""
+        return self._evaluate(valid_dev, lambda: [
+            self.segment.device_column(name, capacity)
+            for name in self.field_order])
+
+    def mask_from_cols(self, valid_dev: torch.Tensor, cols) -> torch.Tensor:
+        """One shard of the sharded plane: valid_dev [cap_s] bool and `cols`
+        (this filter's columns in field_order, geo ones as (lat, lon)) on
+        the shard's device. Returns valid & filter there."""
+        return self._evaluate(valid_dev, lambda: cols)
+
+    def match_count(self, mask_dev) -> int:
         """Rows passing (validity & filter), counted on the device from a
-        composed mask; one scalar copy to the host per (mutation version,
-        mask). Drives the selectivity gate of the graph path: the filtered
-        rank-k neighbour sits near global rank k/selectivity, so the beam
-        widens with it or the exact masked scan takes over."""
+        composed mask, or from the list of a sharded table's shard masks;
+        one scalar copy to the host a shard per (mutation version, masks).
+        Drives the selectivity gate of the graph path: the filtered rank-k
+        neighbour sits near global rank k/selectivity, so the beam widens
+        with it or the exact masked scan takes over."""
+        masks = (list(mask_dev) if isinstance(mask_dev, (list, tuple))
+                 else [mask_dev])
         ver = self.segment.mutation_version
         hit = self._count
-        if hit is not None and hit[0] == ver and hit[1] is mask_dev:
+        if (hit is not None and hit[0] == ver and len(hit[1]) == len(masks)
+                and all(a is b for a, b in zip(hit[1], masks))):
             return hit[2]
-        cnt = int(mask_dev.sum())
-        self._count = (ver, mask_dev, cnt)
+        cnt = sum(int(m.sum()) for m in masks)
+        self._count = (ver, masks, cnt)
         return cnt

@@ -203,6 +203,52 @@ def _knn_prune_batch_kernel(start: int, table, norms, knn_ids, alpha: float,
     return _extract_fwd(ids_b, kept, degree)
 
 
+def _pool_size(degree: int) -> int:
+    return min(128, max(degree * 2, 64))
+
+
+def prune_forward_edges(table: torch.Tensor, norms: torch.Tensor,
+                        knn_ids: torch.Tensor, n: int, reps: np.ndarray,
+                        metric: int, degree: int, alpha: float,
+                        search_pools: bool) -> np.ndarray:
+    """Forward edges [n, degree] int32 (-1 padded) of rows [0, n): each
+    node's KNN list pruned, or with search_pools its beam-searched pool
+    (seeded from `reps`), in fixed node batches; the last batch overlaps
+    the one before it. knn_ids [rows, K] lies on the table's device and
+    covers [0, n) with rows <= the table's rows."""
+    dev = table.device
+    search_l, search_iters = resolve_build_search_params()
+    if search_pools:
+        # Bootstrap graph: half degree halves the pool stage's gathers.
+        boot_deg = max(degree // 2, 16)
+        boot_adj = knn_ids[:, :boot_deg]
+        if boot_adj.shape[1] < boot_deg:
+            boot_adj = torch.nn.functional.pad(
+                boot_adj, (0, boot_deg - boot_adj.shape[1]), value=-1)
+        boot_adj = boot_adj.contiguous()
+        boot_reps = torch.from_numpy(np.asarray(reps, np.int32)).to(dev)
+    n_rows_knn = knn_ids.shape[0]
+    batch = min(PRUNE_BATCH, n_rows_knn)
+    from ..utils import build_pause_gate
+
+    fwd_parts = []
+    for start in range(0, n, batch):
+        build_pause_gate.check_wait()  # BuilderSuspend equivalent
+        real_start = min(start, n_rows_knn - batch)
+        if search_pools:
+            fwd_b = _build_batch_body(
+                real_start, table, norms, boot_adj, boot_reps, knn_ids,
+                float(alpha), int(metric), degree, _pool_size(degree),
+                search_l, search_iters, batch)
+        else:
+            fwd_b = _knn_prune_batch_kernel(
+                real_start, table, norms, knn_ids, float(alpha),
+                int(metric), degree, batch)
+        fwd_parts.append(fwd_b[start - real_start:])
+    return np.ascontiguousarray(torch.cat(fwd_parts).cpu().numpy()[:n],
+                                dtype=np.int32)
+
+
 def _prune_batch_kernel(pool_vecs: torch.Tensor, pool_d: torch.Tensor,
                         pool_valid: torch.Tensor, metric: int, degree: int,
                         alpha: float) -> torch.Tensor:
@@ -531,40 +577,11 @@ class GraphIndex:
         reps_host = _make_rep_ids(n, nav, store.buf)
         lap("reps")
 
-        # 4. Prune each node's KNN list (or its searched pool), in fixed
-        #    node batches; the last batch overlaps the one before it.
+        # 4. Prune each node's KNN list (or its searched pool).
         r_total = degree * 2
-        pool_size = min(128, max(degree * 2, 64))
-        search_l, search_iters = resolve_build_search_params()
-        if search_pools:
-            # Bootstrap graph: half degree halves the pool stage's gathers.
-            boot_deg = max(degree // 2, 16)
-            boot_adj = knn_ids[:, :boot_deg]
-            if boot_adj.shape[1] < boot_deg:
-                boot_adj = torch.nn.functional.pad(
-                    boot_adj, (0, boot_deg - boot_adj.shape[1]), value=-1)
-            boot_adj = boot_adj.contiguous()
-            boot_reps = torch.from_numpy(reps_host).to(dev)
-        n_rows_knn = knn_ids.shape[0]
-        batch = min(PRUNE_BATCH, n_rows_knn)
-        from ..utils import build_pause_gate
-
-        fwd_parts = []
-        for start in range(0, n, batch):
-            build_pause_gate.check_wait()  # BuilderSuspend equivalent
-            real_start = min(start, n_rows_knn - batch)
-            if search_pools:
-                fwd_b = _build_batch_body(
-                    real_start, store.buf, store.norms, boot_adj, boot_reps,
-                    knn_ids, float(alpha), int(metric), degree, pool_size,
-                    search_l, search_iters, batch)
-            else:
-                fwd_b = _knn_prune_batch_kernel(
-                    real_start, store.buf, store.norms, knn_ids,
-                    float(alpha), int(metric), degree, batch)
-            fwd_parts.append(fwd_b[start - real_start:])
-        fwd = np.ascontiguousarray(
-            torch.cat(fwd_parts).cpu().numpy()[:n], dtype=np.int32)
+        fwd = prune_forward_edges(store.buf, store.norms, knn_ids, n,
+                                  reps_host, int(metric), degree, alpha,
+                                  search_pools)
         lap("prune")
 
         # 5. Reverse edges + connectivity repair (host, native helpers).
@@ -579,7 +596,8 @@ class GraphIndex:
         build_s = time.perf_counter() - t_start
         metrics.inc("graph_builds_total")
         metrics.observe("graph_build", build_s)
-        per_node = (search_l * 4 + pool_size ** 2 if search_pools
+        per_node = (resolve_build_search_params()[0] * 4
+                    + _pool_size(degree) ** 2 if search_pools
                     else knn_k ** 2)
         metrics.inc("build_distance_computations",
                     float(n) * n + float(n) * per_node)

@@ -63,6 +63,9 @@ MAIN_PATH_SHAPES = (
     ("int8_fused", torch.int8, (1_048_576, 48 * 128), 8_192),
     # Adjacency rows of degree 48 (ops/beam.py:187).
     ("int32_adjacency", torch.int32, (1_048_576, 48), 8_192),
+    # A shard's full adjacency rows of degree 64, which the sharded
+    # traversal walks: 2,048 queries x 4 picks (parallel/engine.py).
+    ("int32_shard_adjacency", torch.int32, (1_048_576, 64), 8_192),
     # f32 re-rank rows of one flat-serve program: 8,192 queries x k_cand 42
     # (ops/beam.py:284).
     ("f32_rerank", torch.float32, (262_144, 128), 344_064),

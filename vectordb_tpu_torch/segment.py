@@ -50,6 +50,14 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def column_device_dtype(col: np.ndarray):
+    """The dtype a primitive column takes on the device: the one the host
+    evaluator reads it in (bool, int64 for the ints, float64 otherwise)."""
+    if col.dtype == np.bool_:
+        return np.bool_
+    return np.int64 if col.dtype.kind in "iu" else np.float64
+
+
 class DeviceVectorStore:
     """Device-side mirror of one dense vector column.
 
@@ -620,12 +628,7 @@ class TableSegment:
             out = (upload(lat, np.float64), upload(lon, np.float64))
         else:
             col = self.primitive_cols[name]
-            if col.dtype == np.bool_:
-                out = upload(col, np.bool_)
-            elif col.dtype.kind in "iu":
-                out = upload(col, np.int64)
-            else:
-                out = upload(col, np.float64)
+            out = upload(col, column_device_dtype(col))
         cache[key] = (self.mutation_version, out)
         return out
 

@@ -15,8 +15,11 @@ exactly in f32. Tables of IvfKnnThreshold rows and more build their KNN
 graph through the IVF-partitioned KNN (ops/ivf.ivf_knn). A sparse query
 scores every row on the device (ops/sparse.SparseColumnIndex), takes the
 k + RERANK_SLACK best there and re-ranks them exactly on the host;
-hybrid_search fuses per-field result sets (rrf or weighted). The sharded
-plane and the reduced-precision query wires are not ported yet: they raise
+hybrid_search fuses per-field result sets (rrf or weighted). With
+ShardCount >= 2 each dense field lives on the sharded plane
+(parallel/engine.py: rows interleaved over the engine mesh's shards, one
+graph a shard, one merge a batch, the exact re-rank on the host mirror).
+The reduced-precision query wires are not ported yet: they raise
 NOT_IMPLEMENTED_ERROR, never answer differently.
 
 Filter semantics follow the TPU package: filters without `@distance` fold
@@ -135,8 +138,6 @@ class Table:
         self.is_leader = is_leader
         self.config = config or global_config
         self.embedding_service = embedding_service
-        if self.config.shard_count >= 2:
-            raise _not_ported("The sharded data plane (ShardCount >= 2)")
         self.field_type_map = schema.field_type_map()
         self.metric_map = {f.name: f.metric_type for f in schema.fields}
 
@@ -167,10 +168,24 @@ class Table:
         self.search_iters_override: Dict[str, int] = {}
         self._tuned_report: Dict[str, Any] = {}
         self._load_tuned_ef()
+        # Sharded data plane (ShardCount >= 2): each dense field gets a
+        # row-interleaved store and one graph a shard over the engine mesh.
+        self.sharded_fields: Dict[str, Any] = {}
+        self.mesh = None
+        if self.config.shard_count >= 2:
+            from .parallel.engine import get_engine_mesh
+            self.mesh = get_engine_mesh(self.config.shard_count)
+            if self.mesh is None:
+                logger.warning("ShardCount set but only one device "
+                               "available; sharded mode disabled")
         for f in schema.fields:
             if f.is_dense_vector():
                 self.graphs[f.name] = None
                 self._graph_built_rows[f.name] = 0
+                if self.mesh is not None:
+                    from .parallel.engine import ShardedDenseField
+                    self.sharded_fields[f.name] = ShardedDenseField(
+                        self.mesh, f.vector_dimension)
                 self._try_load_graph(f.name)
 
     # ------------------------------------------------------------------
@@ -562,12 +577,17 @@ class Table:
         package then also validates reduced-precision query wires; that
         step waits for the ops/qwire port, so the f32 wire stays."""
         report: Dict[str, Any] = {}
+        sharded = self.sharded_fields
         fields = ([field_name] if field_name
-                  else sorted(f for f, g in self.graphs.items()
-                              if g is not None))
+                  else sorted({f for f, g in self.graphs.items()
+                               if g is not None}
+                              | {f for f, sf in sharded.items()
+                                 if sf.graph is not None}))
         seg = self.segment
         for fname in fields:
-            if self.graphs.get(fname) is None:
+            sf = sharded.get(fname)
+            if self.graphs.get(fname) is None and (sf is None
+                                                   or sf.graph is None):
                 continue  # the flat path is already exact
             valid = seg.valid_mask()
             alive = np.nonzero(valid)[0]
@@ -588,9 +608,18 @@ class Table:
             n_half = q_id.shape[0]
             queries = np.concatenate([q_id, q_ood], axis=0)
             kk = min(k, alive.size)
-            gt_cand, _ = self._flat_candidates(
-                fname, queries, valid, metric,
-                min(kk + RERANK_SLACK, alive.size), mask_cacheable=True)
+            if sf is not None:
+                # The sharded flat scan: a single-device view would copy
+                # the whole table onto one device.
+                sf.sync(seg.dense_host[fname], seg.dense_norms[fname],
+                        seg.record_number)
+                gt_cand = sf.search(
+                    self._pad_queries(sf.store, queries), valid, metric,
+                    min(kk + RERANK_SLACK, alive.size))
+            else:
+                gt_cand, _ = self._flat_candidates(
+                    fname, queries, valid, metric,
+                    min(kk + RERANK_SLACK, alive.size), mask_cacheable=True)
             gt_ids, _ = self._rerank_candidates(fname, queries, gt_cand,
                                                 metric, kk, queries.shape[0])
             gt_sets = [set(row[row >= 0].tolist()) for row in gt_ids]
@@ -724,10 +753,24 @@ class Table:
         the flat-serve program when the table passes its gates
         (_flat_serve_view), else grouped beam search with on-device exact
         re-rank when a graph covers every row (ops/beam.
-        beam_search_grouped); otherwise the per-batch dispatch/fetch/
-        collect pipeline serves them."""
+        beam_search_grouped), or on the sharded plane the per-shard graph
+        program (_grouped_sharded) when the query set carries no filter;
+        otherwise the per-batch dispatch/fetch/collect pipeline serves
+        them."""
         n = self.segment.record_number
         g_max = max(1, int(self.config.query_group_size))
+        sf = self.sharded_fields.get(field_name)
+        if sf is not None:
+            if (g_max > 1 and queries.shape[0] > batch
+                    and sf.graph is not None and filter_ctx is None
+                    and n >= self.config.brute_force_threshold
+                    and not self.config.pre_filter):
+                return self._grouped_sharded(sf, field_name, queries, valid,
+                                             metric, k, batch, g_max,
+                                             mask_cacheable, ef)
+            return self._pipelined_batches(field_name, queries, valid,
+                                           metric, k, batch, mask_cacheable,
+                                           filter_ctx, ef)
         if queries.shape[0] > batch and not self.config.pre_filter:
             fs = self._flat_serve_view(field_name, n, batch, g_max)
             if fs is not None:
@@ -896,6 +939,93 @@ class Table:
                                            metric, k_eff, q_total)
         return ids_all, d_all
 
+    def _grouped_sharded(self, sf, field_name: str, queries: np.ndarray,
+                         valid: np.ndarray, metric: MetricType, k: int,
+                         batch: int, g_max: int, mask_cacheable: bool,
+                         ef: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Sharded throughput mode in super-chunks of batch * g_max queries:
+        upload, one launch_grouped (per batch: every shard's traversal +
+        tail, one merge), drain, in order: a plain loop where the TPU
+        package pumps uploads and drains through thread pools for its
+        relay. Candidates come back GLOBAL; the exact f32 re-rank runs on
+        the host mirror (the shards keep no f32 copy)."""
+        seg = self.segment
+        n = seg.record_number
+        n_alive = int(np.count_nonzero(valid))
+        k_eff = min(k, max(n_alive, 1))
+        sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
+        ver = None
+        if mask_cacheable:
+            ver = seg.mutation_version
+            valid = seg.valid_mask()
+        k_cand = min(k_eff + GRAPH_SLACK, max(n_alive, 1))
+        beam = max(self._field_ef(field_name, ef), k_cand)
+        term = min(max(self.config.beam_term_width, k_cand), beam)
+        it = self._field_iters(field_name, beam)
+        compact = self._sharded_compact(sf)
+        fused = self._sharded_fused(sf, field_name)
+        self._query_wire(field_name)
+        q_total = queries.shape[0]
+        cand_all = np.full((q_total, k_cand), -1, dtype=np.int64)
+        super_chunk = batch * g_max
+        for s in range(0, q_total, super_chunk):
+            qc = queries[s:s + super_chunk]
+            real = qc.shape[0]
+            g = -(-real // batch)
+            qp = np.zeros((g * batch, sf.store.dim_padded), dtype=np.float32)
+            qp[:real, : qc.shape[1]] = qc
+            if real < g * batch:  # pad with a real query (row 0)
+                qp[real:, : qc.shape[1]] = qc[0]
+            packed = sf.launch_grouped(
+                qp.reshape(g, batch, -1), valid, metric, k_cand,
+                beam_width=beam, expand=self.config.beam_expand,
+                term_width=term, mask_version=ver, compact=compact,
+                fused=fused, iters=0 if it >= beam else it)
+            _, ids_np = beam_ops.unpack_wire(
+                packed.reshape(-1, packed.shape[-1])[:real].cpu().numpy(),
+                k_cand)
+            cand_all[s:s + real] = ids_np
+        # Full-k guarantee (rare): top up under-filled rows with the exact
+        # sharded flat scan, a batch at a time.
+        if (cand_all >= 0).sum(axis=1).min() < min(k_eff, n_alive):
+            qp_all = self._pad_queries(sf.store, queries)
+            f_ids = np.concatenate([
+                sf.search(qp_all[s:s + batch], valid, metric, k_cand,
+                          mask_version=ver)
+                for s in range(0, q_total, batch)], axis=0)
+            cand_all = np.concatenate([cand_all, f_ids], axis=1)
+        return self._rerank_candidates(field_name, queries, cand_all,
+                                       metric, k_eff, q_total)
+
+    @staticmethod
+    def _pad_queries(store, queries: np.ndarray) -> np.ndarray:
+        """[B, D] queries zero-padded to the store's [B, D_pad] f32."""
+        qp = np.zeros((queries.shape[0], store.dim_padded), dtype=np.float32)
+        qp[:, : queries.shape[1]] = queries
+        return qp
+
+    def _sharded_compact(self, sf) -> int:
+        """BeamCompact is tuned against the single-device traversal width
+        (expand * BeamTraversalDegree); the sharded plane walks its FULL
+        adjacency, so the cut scales to the same ratio."""
+        compact = self.config.beam_compact
+        if compact and sf.graph is not None:
+            r_single = self.config.beam_traversal_degree or 48
+            compact = compact * sf.graph.adjacency_host.shape[2] // max(
+                r_single, 1)
+        return compact
+
+    def _sharded_fused(self, sf, field_name: str):
+        """(per-shard fused tables, scale) for the sharded traversal, or
+        None when FusedTraversal or its gates turn it off."""
+        mode = getattr(self.config, "fused_traversal", "auto")
+        if mode == "off" or sf.graph is None:
+            return None
+        budget = self.config.fused_max_bytes if mode == "auto" else (1 << 60)
+        fused = sf.graph.fused_traversal(
+            sf.store, self.segment.dense_host[field_name], budget)
+        return None if fused[0] is None else fused
+
     def _pipelined_batches(self, field_name: str, queries: np.ndarray,
                            valid: np.ndarray, metric: MetricType, k: int,
                            batch: int, mask_cacheable: bool,
@@ -953,6 +1083,24 @@ class Table:
              "metric": metric, "k_eff": k_eff, "b_real": b_real, "n": n,
              "n_alive": n_alive, "mask_cacheable": mask_cacheable,
              "filter_ctx": filter_ctx, "mode": "flat"}
+        sf = self.sharded_fields.get(field_name)
+        if sf is not None:
+            # A device filter evaluates per shard on its device over
+            # version-cached columns; host-folded filters arrive folded
+            # into `valid` (with pre_filter / boost set by the caller).
+            shard_filter = None
+            if filter_ctx is not None:
+                sf.sync(seg.dense_host[field_name],
+                        seg.dense_norms[field_name], n)
+                shard_filter = (filter_ctx.device,
+                                sf.device_columns(seg, filter_ctx.device))
+            h["mode"] = "sharded"
+            h["sf"] = sf
+            h["dev"], h["shard_ctx"] = self._sharded_launch(
+                sf, field_name, queries, valid, metric, k_eff, n, n_alive,
+                mask_cacheable, ef=ef, shard_filter=shard_filter,
+                boost=boost, pre_filter=pre_filter, iters=iters)
+            return h
         use_graph = (graph is not None
                      and n >= self.config.brute_force_threshold
                      and not self.config.pre_filter and not pre_filter)
@@ -1026,7 +1174,18 @@ class Table:
         d_h, ids_h = h["dev_host"]
         cand_ids = ids_h.astype(np.int64)
         cand_ids[~np.isfinite(d_h)] = -1
-        if h["mode"] == "graph":
+        if h["mode"] == "sharded":
+            # Full-k guarantee: the exact sharded flat scan under the same
+            # masks tops up rows the per-shard beams left short.
+            ctx = h["shard_ctx"]
+            if (ctx["use_graph"] and (cand_ids >= 0).sum(axis=1).min()
+                    < min(k_eff, h["n_alive"])):
+                f_ids = h["sf"].search(
+                    ctx["qp"], ctx["valid"], metric, ctx["k_cand"],
+                    mask_version=ctx["ver"],
+                    shard_filter=ctx["shard_filter"])
+                cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
+        elif h["mode"] == "graph":
             n, n_alive = h["n"], h["n_alive"]
             kw = dict(mask_cacheable=h["mask_cacheable"],
                       filter_ctx=h["filter_ctx"])
@@ -1046,6 +1205,59 @@ class Table:
                 cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
         return self._rerank_candidates(field_name, queries, cand_ids,
                                        metric, k_eff, h["b_real"])
+
+    def _sharded_launch(self, sf, field_name: str, queries: np.ndarray,
+                        valid: np.ndarray, metric: MetricType, k_eff: int,
+                        n: int, n_alive: int, mask_cacheable: bool,
+                        ef: Optional[int] = None, shard_filter=None,
+                        boost: int = 1, pre_filter: bool = False,
+                        iters: Optional[int] = None):
+        """Launch candidate generation on the sharded plane: per-shard beam
+        search (+ tail) or per-shard flat scan, merged to GLOBAL ids.
+        Returns (device tensors, context for collect's top-up)."""
+        seg = self.segment
+        sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
+        qp = self._pad_queries(sf.store, queries)
+        use_graph = (sf.graph is not None
+                     and n >= self.config.brute_force_threshold
+                     and not self.config.pre_filter and not pre_filter)
+        k_cand = min(k_eff + GRAPH_SLACK, max(n_alive, 1))
+        ver = None
+        if mask_cacheable:
+            # Version first, then a fresh validity snapshot: the caller's
+            # `valid` may predate a concurrent insert that already bumped
+            # the version (see _device_mask).
+            ver = seg.mutation_version
+            valid = seg.valid_mask()
+        if shard_filter is not None and use_graph:
+            # Selectivity gate: count the matches on the devices (cached
+            # per filter and version); widen the per-shard beams, or past
+            # the cutover take the exact sharded flat scan.
+            n_match = shard_filter[0].match_count(
+                sf.composed_mask(valid, ver, shard_filter))
+            if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
+                use_graph = False
+            else:
+                boost = max(boost, self._sel_boost(n_alive, n_match))
+        beam = max(self._field_ef(field_name, ef) * boost,
+                   k_eff + GRAPH_SLACK)
+        term = min(max(self.config.beam_term_width,
+                       k_eff + GRAPH_SLACK) * boost, beam)
+        if boost > 1:
+            term = min(max(term, beam // 4), beam)
+        fused = self._sharded_fused(sf, field_name) if use_graph else None
+        # The tuned depth applies as on one device; boosted (filtered)
+        # searches walk full depth.
+        it = 0 if boost > 1 else self._field_iters(field_name, beam, iters)
+        dev = sf.launch(qp, valid, metric, k_cand, use_graph=use_graph,
+                        beam_width=beam, expand=self.config.beam_expand,
+                        term_width=term, mask_version=ver,
+                        compact=self._sharded_compact(sf),
+                        shard_filter=shard_filter, fused=fused,
+                        iters=0 if it >= beam else it)
+        ctx = {"qp": qp, "valid": valid, "ver": ver, "use_graph": use_graph,
+               "k_cand": k_cand, "shard_filter": shard_filter}
+        return dev, ctx
 
     def _rerank_candidates(self, field_name: str, queries: np.ndarray,
                            cand_ids: np.ndarray, metric: MetricType,
@@ -1468,20 +1680,33 @@ class Table:
         return os.path.join(self.db_path, str(self.schema.id),
                             f"ann_graph_{fmap[field_name].id}.npz")
 
+    def _sharded_graph_path(self, field_name: str) -> str:
+        fmap = self.schema.field_map()
+        return os.path.join(self.db_path, str(self.schema.id),
+                            f"ann_graph_{fmap[field_name].id}_sharded.npz")
+
     def _try_load_graph(self, field_name: str) -> None:
-        """Load this field's graph artifact, or import the reference
-        engine's CSR graph when the artifact is absent (compat.py). A graph
-        built from more rows than the table holds is skipped (reference
-        guard, table_mvp.cpp:163-167); an unreadable artifact is logged and
-        skipped."""
+        """Load this field's graph artifact (on the sharded plane, the
+        sharded one, whose shard count must be the mesh's), or import the
+        reference engine's CSR graph when a single-device table has no
+        artifact (compat.py). A graph built from more rows than the table
+        holds is skipped (reference guard, table_mvp.cpp:163-167); an
+        unreadable artifact is logged and skipped."""
         import zipfile
 
         from . import compat
         from .index.graph import GraphIndex
 
-        path = self._graph_path(field_name)
+        sf = self.sharded_fields.get(field_name)
+        path = (self._graph_path(field_name) if sf is None
+                else self._sharded_graph_path(field_name))
         try:
-            if os.path.exists(path):
+            if sf is not None:
+                if not os.path.exists(path):
+                    return
+                from .parallel.engine import ShardedGraphIndex
+                g = ShardedGraphIndex.load(path, self.mesh)
+            elif os.path.exists(path):
                 g = GraphIndex.load(path, self.segment, field_name)
             else:
                 ref_path = compat.reference_graph_path(
@@ -1502,8 +1727,15 @@ class Table:
                 f"Skipping graph for {field_name}: built from {g.num_rows} "
                 f"rows but table has only {self.segment.record_number}")
             return
+        self._install_graph(field_name, g)
+
+    def _install_graph(self, field_name: str, g) -> None:
         with self.graph_lock:
-            self.graphs[field_name] = g
+            sf = self.sharded_fields.get(field_name)
+            if sf is not None:
+                sf.graph = g
+            else:
+                self.graphs[field_name] = g
             self._graph_built_rows[field_name] = g.num_rows
 
     def rebuild(self) -> Status:
@@ -1523,16 +1755,23 @@ class Table:
             self.wal.clean_up_old_files()
         for name in todo:
             if self.is_leader:
-                from .index.graph import GraphIndex
-                g = GraphIndex.build(self.segment, name,
-                                     self.metric_map[name],
-                                     knn_k=self.config.graph_knn_k,
-                                     degree=self.config.graph_degree,
-                                     alpha=self.config.graph_alpha)
-                g.save(self._graph_path(name))
-                with self.graph_lock:
-                    self.graphs[name] = g
-                    self._graph_built_rows[name] = g.num_rows
+                sf = self.sharded_fields.get(name)
+                kw = dict(knn_k=self.config.graph_knn_k,
+                          degree=self.config.graph_degree,
+                          alpha=self.config.graph_alpha)
+                if sf is not None:
+                    from .parallel.engine import ShardedGraphIndex
+                    g = ShardedGraphIndex.build(
+                        sf.store, self.segment.dense_host[name],
+                        self.segment.dense_norms[name], n,
+                        self.metric_map[name], **kw)
+                    g.save(self._sharded_graph_path(name))
+                else:
+                    from .index.graph import GraphIndex
+                    g = GraphIndex.build(self.segment, name,
+                                         self.metric_map[name], **kw)
+                    g.save(self._graph_path(name))
+                self._install_graph(name, g)
                 self._auto_tune(name)
             else:
                 self._try_load_graph(name)
@@ -1552,13 +1791,16 @@ class Table:
             self.config, "auto_tune_target_recall", 0.995)))
 
     def _warmup(self, field_name: str) -> None:
-        """Build both CUDA kernels (on a CUDA store), then run the query
-        buckets up to WarmupBuckets once, so user queries find the device
-        views (adjacency, fused table, masks) in place."""
+        """Build both CUDA kernels (on a CUDA store or shard), then run the
+        query buckets up to WarmupBuckets once, so user queries find the
+        device views (adjacency, fused table, masks) in place."""
         n = self.segment.record_number
         if n == 0:
             return
-        if self.segment.device_view(field_name).buf.is_cuda:
+        sf = self.sharded_fields.get(field_name)
+        devices = (sf.mesh.devices if sf is not None
+                   else [self.segment.device_view(field_name).buf.device])
+        if any(d.type == "cuda" for d in devices):
             from . import _cuda_build
             _cuda_build.build_all()
         cap = int(getattr(self.config, "warmup_buckets", 16))
@@ -1627,6 +1869,8 @@ class Table:
         self.wal.close()
         for f in self.graphs:
             self.graphs[f] = None
+        for sf in self.sharded_fields.values():
+            sf.release()
         self.segment.release_device()
         self._mask_cache = {}
         self._device_filter_cache = {}
