@@ -11,7 +11,10 @@ queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
 bit, at every row width the main path gathers (gather.MAIN_PATH_SHAPES:
 bf16 store rows, int8 fused rows, int32 adjacency rows, a shard's int32
 adjacency rows, f32 re-rank rows, f32 scalars, the build's int8 store
-rows, a sparse query's f32 scatter, the IVF build's bf16 candidate rows).
+rows, a sparse query's f32 scatter, the IVF build's bf16 candidate rows);
+and the query wires' device round trip (ops/qwire.apply_wire, bf16 and
+block int8) bit for bit against the host's on 8,192 x 128 queries, with the
+prologue's time at a super-chunk of 8,192 x 128.
 Each case prints its time beside its
 bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
@@ -24,7 +27,8 @@ read just after (gathers also by row width):
   - flat-serve: a 250,000 x 128 clustered table, single queries through
     vdb.query, 16,384 queries through Table.grouped_dense_search, then the
     same with a device filter keeping half the rows (partial-min kernel
-    with the device mask);
+    with the device mask), then with QueryDtype=int8 (the scan scores the
+    wire's values);
   - graph: a 1,000,000 x 128 clustered table with attributes `cat` (INT,
     0-9) and `price` (DOUBLE, [0, 100)), vdb.rebuild() (exact KNN on the
     partial-min kernel, pruning, auto-tune), single queries through
@@ -32,6 +36,9 @@ read just after (gathers also by row width):
     with the device filter `cat < 5` (traversal gathers through the
     row-gather kernel), then one grouped program and 20 single queries
     under torch.profiler (device time, the gather's share, idle share);
+    then the query wires: 16,384 grouped queries under QueryDtype f32, bf16
+    and int8, and under auto after a fresh tune_search_ef (which wire and
+    rung it picks);
   - REST in-process over that database: 2,048 single queries from 16
     client threads over four filters (none, `cat < 5`, `price > 80.0`,
     `price < 5.0`), an insert of 2,048 rows served from the flat tail,
@@ -56,15 +63,16 @@ read just after (gathers also by row width):
     clustered rows (seed 4) with `cat`: 64 flat single queries before the
     build, vdb.rebuild() (one graph a shard: exact KNN on the partial-min
     kernel, pruning on the gather kernel), 16,384 grouped and 256 single
-    queries (and a profiled grouped program and 20 single queries), 64
-    under `cat < 5`, an insert of 2,048 rows found first from the flat
-    tail, then an unload and a load of the sharded graph.
+    queries (and a profiled grouped program and 20 single queries), the
+    16,384 grouped queries again under QueryDtype=int8, 64 under `cat <
+    5`, an insert of 2,048 rows found first from the flat tail, then an
+    unload and a load of the sharded graph.
 Results are checked against exact (masked) oracles: recall@10 >= 0.99
 (0.95 for the widened-beam filters; IVF neighbour recall@64 >= 0.90),
 every returned row passes its filter, distances equal an f32 (sparse:
-float64) recomputation. Exits non-zero on any failure and
-when no CUDA device is present; the last line is a JSON object with
-"ok": true.
+float64) recomputation from the f32 query under every query wire. Exits
+non-zero on any failure and when no CUDA device is present; the last line
+is a JSON object with "ok": true.
 """
 from __future__ import annotations
 
@@ -88,7 +96,7 @@ import torch
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build, rest
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import gather, ivf, partial_min
+from vectordb_tpu_torch.ops import gather, ivf, partial_min, qwire
 from vectordb_tpu_torch.ops.sparse import SparseVector
 from vectordb_tpu_torch.schema import MetricType
 
@@ -122,6 +130,10 @@ IVF_RECALL_FLOOR = 0.90  # tests/test_ivf_knn.py holds ivf_knn to it
 # under `cat < 5`, rows inserted after the build.
 SHARD_N, SHARD_COUNT, SHARD_Q = 4_000_000, 4, 16_384
 SHARD_SINGLE, SHARD_PRE, SHARD_FILTERED, SHARD_INSERT = 256, 64, 64, 2048
+# Query wires (QueryDtype): rows of the device round trip held bit for bit
+# to the host's, and the wires each grouped phase forces.
+WIRE_ROWS = 8192
+GRAPH_WIRES = ("f32", "bf16", "int8")
 # Both sides add exact bf16 x bf16 products in f32 (the kernel on the tensor
 # cores), in different orders: an order changes a sum of D terms by at most
 # about D * 2^-24 of the sum of magnitudes, which |q|^2 + |x|^2 bounds.
@@ -191,6 +203,81 @@ def read_counts() -> dict:
     """The launch counts since reset_counts(), just after a phase."""
     return {"partial_min": partial_min.launches, "gather": gather.launches,
             "gather_by_row_bytes": dict(gather.launches_by_row_bytes)}
+
+
+def check_wires(dev: torch.device) -> dict:
+    """ops/qwire.apply_wire on the card against the host round trip, bit
+    for bit, for WIRE_ROWS x 128 queries at mixed scales (all-zero rows,
+    hot blocks, block maxima whose scale sits on a bf16 tie) and a dim of
+    100; and the prologue's time at the grouped super-chunk's shape
+    (4 x GRAPH_BATCH rows of 128)."""
+    rng = np.random.default_rng(6)
+    q = (rng.normal(size=(WIRE_ROWS, 128))
+         * rng.uniform(0.01, 100.0, size=(WIRE_ROWS, 1))).astype(np.float32)
+    q[::97] = 0.0
+    q[1::89, :qwire.QBLOCK] = 1e4
+    # Rows 2, 91, ...: every block's max m makes m / 127 a bf16 tie.
+    hi = (0x3C00 + rng.integers(0, 0x300, size=(q[2::89].shape[0], 16))
+          ).astype(np.uint32)
+    amax = ((hi << 16) | 0x8000).view(np.float32) * np.float32(127.0)
+    blocks = q[2::89].reshape(-1, 16, qwire.QBLOCK)
+    blocks[:, :, 0] = amax
+    blocks[:, :, 1:] = np.clip(blocks[:, :, 1:], -amax[:, :, None],
+                               amax[:, :, None])
+    q[2::89] = blocks.reshape(-1, 128)
+    out = {}
+    for wire in ("bf16", "int8"):
+        for name, c in (("128", q), ("100", q[:1024, :100])):
+            got = qwire.apply_wire(torch.from_numpy(np.ascontiguousarray(c))
+                                   .to(dev), wire).cpu().numpy()
+            want = qwire.roundtrip(c, wire)
+            diff = int(np.count_nonzero(got.view(np.uint32)
+                                        != want.view(np.uint32)))
+            if got.shape != c.shape or diff:
+                raise AssertionError(f"{wire} wire, dim {name}: {diff} values "
+                                     "differ from the host round trip")
+        out[wire] = {"rows": WIRE_ROWS, "bitwise_equal": True}
+    qd = torch.from_numpy(q[:4 * GRAPH_BATCH]).to(dev)
+    for wire in ("f32", "bf16", "int8"):
+        out.setdefault(wire, {})["prologue_us"] = 1e3 * cuda_ms(
+            lambda: qwire.apply_wire(qd, wire), reps=5, inner=20)
+    log(f"query wires on the card: {json.dumps(out)}")
+    return out
+
+
+def wire_pass(table, wire: str, queries, valid, batch: int, x, want,
+              kernel: str) -> dict:
+    """QueryDtype=`wire`, then grouped_dense_search of `queries` (after one
+    warm-up call), launch counts at 0 just before and read just after:
+    QPS, recall@10 of the first len(want) queries against `want`, held to
+    RECALL_FLOOR, distances exact against the f32 query (rtol 1e-5), and
+    `kernel` launched."""
+    assert vdb.update_config({"QueryDtype": wire}) == 0
+    table.grouped_dense_search("Emb", queries[:batch * 4 + 1], valid,
+                               MetricType.EUCLIDEAN, 10, batch=batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, dists = table.grouped_dense_search(
+        "Emb", queries, valid, MetricType.EUCLIDEAN, 10, batch=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = {"wire": table._query_wire("Emb"), "qps": queries.shape[0] / wall,
+         "wall_s": wall, "counts": read_counts()}
+    if r["counts"][kernel] <= 0:
+        raise AssertionError(f"QueryDtype={wire}: {kernel} never launched")
+    if ids.shape != (queries.shape[0], 10) or not np.isfinite(dists).all():
+        raise AssertionError(f"QueryDtype={wire}: result shape {ids.shape}")
+    r["recall_at_10"] = float(np.mean([len(set(a) & set(b)) / 10.0
+                                       for a, b in zip(ids, want)]))
+    if r["recall_at_10"] < RECALL_FLOOR:
+        raise AssertionError(f"QueryDtype={wire}: recall@10 "
+                             f"{r['recall_at_10']} < {RECALL_FLOOR}")
+    exact = ((x[ids] - queries[:, None, :]) ** 2).sum(2)
+    if not np.allclose(dists, exact, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"QueryDtype={wire}: distances differ from "
+                             "the f32 recomputation")
+    return r
 
 
 def device_profile(fn) -> dict:
@@ -496,11 +583,18 @@ def run_slice(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
             raise AssertionError("filtered flat-serve never launched "
                                  "partial-min")
         log(f"slice filtered grouped: {json.dumps(filtered)}")
+
+        # The int8 query wire forced: partial-min scans the wire's values.
+        int8 = wire_pass(table, "int8", queries, valid, batch, x, want,
+                         "partial_min")
+        assert vdb.update_config({"QueryDtype": "auto"}) == 0
+        log(f"slice grouped QueryDtype=int8: {json.dumps(int8)}")
         vdb.unload_db("smoke")
     return {"rows": n, "dim": dim, "queries": n_q, "batch": batch,
             "group": 4, "recall_at_10": recall, "qps": n_q / wall,
             "wall_s": wall, "counts": counts, "single_counts": single_counts,
-            "peak_bytes": peak, "ingest_s": ingest_s, "filtered": filtered}
+            "peak_bytes": peak, "ingest_s": ingest_s, "filtered": filtered,
+            "int8": int8}
 
 
 def device_filter(table, flt: str):
@@ -619,7 +713,8 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         out["build_phase_s"] = graph.build_seconds
         out["tuned"] = {k: table._tuned_report["Emb"][k]
                         for k in ("ef", "iters", "recall", "id_recall",
-                                  "ood_recall")}
+                                  "ood_recall", "qdtype",
+                                  "qdtype_wire_recall")}
         out["tune_rungs"] = len(table._tuned_report["Emb"]["tried"])
         log(f"graph build phases (s): {json.dumps(graph.build_seconds)}")
         log(f"graph auto-tune: {json.dumps(out['tuned'])}")
@@ -719,6 +814,33 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
                 vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10, "",
                           True) for i in range(20)])}
         log(f"graph profile: {json.dumps(out['profile'])}")
+
+        # Query wires: each forced, then "auto" after a fresh tuning
+        # (FusedTraversal auto), on the grouped graph program.
+        out["wires"] = {w: wire_pass(table, w, queries, valid, batch, x,
+                                     want, "gather") for w in GRAPH_WIRES}
+        assert vdb.update_config({"QueryDtype": "auto"}) == 0
+        t0 = time.perf_counter()
+        rep = table.tune_search_ef(
+            target_recall=table.config.auto_tune_target_recall)["Emb"]
+        out["wire_tune"] = {"tune_s": time.perf_counter() - t0,
+                            **{k: rep[k] for k in (
+                                "qdtype", "ef", "iters", "recall",
+                                "qdtype_wire_recall")}}
+        out["wires"]["auto"] = wire_pass(table, "auto", queries, valid,
+                                         batch, x, want, "gather")
+        # The tuner's gate (the JAX package's rule): the per-batch path on
+        # queries the host rounded, re-ranked against the rounded values,
+        # where the grouped path re-ranks against the f32 query.
+        for w in GRAPH_WIRES:
+            ids, _ = table.batch_dense_search(
+                "Emb", qwire.roundtrip(queries[:n_rec], w), valid,
+                MetricType.EUCLIDEAN, 10, mask_cacheable=True)
+            out["wires"][w]["gate_recall_at_10"] = float(np.mean(
+                [len(set(a) & set(b)) / 10.0 for a, b in zip(ids, want)]))
+        for w, r in out["wires"].items():
+            log(f"graph grouped QueryDtype={w}: {json.dumps(r)}")
+        log(f"graph wire tuning: {json.dumps(out['wire_tune'])}")
 
         out["rest"], x_new = run_rest(table, x, queries, cat, price,
                                       rest_wants)
@@ -1615,7 +1737,8 @@ def run_sharded(dev: torch.device) -> dict:
             out["build_phase_s"] = graph.build_seconds
             out["tuned"] = {k: table._tuned_report["Emb"][k]
                             for k in ("ef", "iters", "recall", "id_recall",
-                                      "ood_recall")}
+                                      "ood_recall", "qdtype",
+                                      "qdtype_wire_recall")}
             out["tune_rungs"] = len(table._tuned_report["Emb"]["tried"])
             log(f"sharded build phases (s, summed over the shards): "
                 f"{json.dumps(graph.build_seconds)}; rebuild "
@@ -1660,6 +1783,10 @@ def run_sharded(dev: torch.device) -> dict:
                     vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10,
                               "", True) for i in range(20)])}
             log(f"sharded profile: {json.dumps(out['profile'])}")
+            out["int8"] = wire_pass(table, "int8", queries, valid,
+                                    GRAPH_BATCH, x, want, "gather")
+            assert vdb.update_config({"QueryDtype": "auto"}) == 0
+            log(f"sharded grouped QueryDtype=int8: {json.dumps(out['int8'])}")
 
             out["single"] = _single_queries(queries[:SHARD_SINGLE],
                                             want[:SHARD_SINGLE])
@@ -1750,6 +1877,7 @@ def main() -> int:
     pm_cases = check_kernel(dev, KERNEL_B, KERNEL_N, KERNEL_D)
     knn = check_knn_kernel(dev)
     gather_cases = check_gather(dev)
+    wires = check_wires(dev)
     sl = run_slice(dev, SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH)
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
@@ -1771,11 +1899,14 @@ def main() -> int:
     phases = {"slice_single": sl["single_counts"],
               "slice_grouped": sl["counts"],
               "slice_filtered": sl["filtered"]["counts"],
+              "slice_int8": sl["int8"]["counts"],
               "graph_build": gr["build_counts"],
               "graph_single": gr["single_counts"],
               **{f"graph_grouped_{mode}": r["counts"]
                  for mode, r in gr["grouped"].items()},
               "graph_filtered": gr["filtered"]["counts"],
+              **{f"graph_wire_{w}": r["counts"]
+                 for w, r in gr["wires"].items()},
               "rest_queries": gr["rest"]["counts"],
               "rest_insert": gr["rest"]["insert_counts"],
               "rest_rebuild": gr["rest"]["rebuild_counts"],
@@ -1789,6 +1920,7 @@ def main() -> int:
               "sharded_pre_build": sh["pre_build"]["counts"],
               "sharded_build": sh["build_counts"],
               "sharded_grouped": sh["grouped"]["counts"],
+              "sharded_int8": sh["int8"]["counts"],
               "sharded_single": sh["single"]["counts"],
               "sharded_filtered": sh["filtered"]["counts"],
               "sharded_insert": sh["insert_counts"],

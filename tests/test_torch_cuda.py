@@ -1,8 +1,9 @@
 """The port on a CUDA device: the partial-min and row-gather kernels
 against their plain versions, the flat-serve and graph slices through
-the kernels, device filter masks against the host evaluator, a REST query
-over a CUDA store, and sparse scoring, the IVF KNN and hybrid search on the
-card against their CPU runs.
+the kernels, the query wires' device round trip against the host's and
+the flat-serve kernel path under the int8 wire, device filter masks
+against the host evaluator, a REST query over a CUDA store, and sparse
+scoring, the IVF KNN and hybrid search on the card against their CPU runs.
 
 These tests need the card and skip without one. They import neither jax
 nor vectordb_tpu, so they also run where JAX is not installed:
@@ -25,7 +26,7 @@ from vectordb_tpu_torch.config import global_config
 from vectordb_tpu_torch.db_server import DBServer
 from vectordb_tpu_torch.expr.evaluator import FilterCompiler
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import flat, gather, partial_min
+from vectordb_tpu_torch.ops import flat, gather, partial_min, qwire
 from vectordb_tpu_torch.rest.server import RestServer
 from vectordb_tpu_torch.schema import MetricType
 
@@ -277,6 +278,81 @@ def test_flat_serve_kernel_path_matches_plain_scan(cuda_device, metric):
     exact = flat.exact_rerank(q, x, ik, metric)
     np.testing.assert_allclose(dk.cpu().numpy(), exact, rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+def test_query_wire_on_the_card_equals_the_host(cuda_device, wire):
+    """ops/qwire.apply_wire on the card equals the host round trip bit for
+    bit: mixed scales, all-zero rows, hot blocks, block maxima whose int8
+    scale sits on a bf16 tie, and a dim of 100."""
+    rng = np.random.default_rng(3)
+    q = (rng.normal(size=(4096, 128))
+         * rng.uniform(0.01, 100.0, size=(4096, 1))).astype(np.float32)
+    q[::97] = 0.0
+    q[1::89, :qwire.QBLOCK] = 1e4
+    hi = (0x3C00 + rng.integers(0, 0x300, size=(64, 16))).astype(np.uint32)
+    amax = ((hi << 16) | 0x8000).view(np.float32) * np.float32(127.0)
+    ties = rng.uniform(-1.0, 1.0, size=(64, 16, qwire.QBLOCK)).astype(
+        np.float32) * amax[:, :, None]
+    ties[:, :, 0] = amax
+    for c in (q, q[:512, :100], ties.reshape(64, 128)):
+        c = np.ascontiguousarray(c)
+        got = qwire.apply_wire(torch.from_numpy(c).to(cuda_device), wire)
+        assert got.is_cuda and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      qwire.roundtrip(c, wire).view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+def test_flat_serve_kernel_path_under_int8_matches_plain_version(
+        cuda_device, monkeypatch, metric):
+    """flat_serve_grouped under the int8 wire, kernel against the plain
+    partial-min on the card: equal candidate sets (table_f32 None), except
+    where the sets part at near-ties of the last candidate's score (both
+    add exact bf16 products in f32 in different orders). The plain run on
+    the host-rounded f32 queries is the plain int8 run, bit for bit."""
+    rng = np.random.default_rng(10 + int(metric))
+    cap, d, gb = 16384, 128, 256
+    x = rng.normal(size=(cap, d)).astype(np.float32)
+    if metric == MetricType.COSINE:
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, cap, gb)] + 0.05 * rng.normal(
+        size=(gb, d)).astype(np.float32)
+    valid = torch.from_numpy(rng.random(cap) > 0.05).to(cuda_device)
+    xt = torch.from_numpy(x).to(cuda_device)
+    norms = (xt * xt).sum(1)
+
+    def serve(queries, wire):
+        return flat.flat_serve_grouped(
+            torch.from_numpy(queries).to(cuda_device), xt.bfloat16(), norms,
+            valid, None, int(metric), 42, 10, cap, use_pallas=True,
+            pack_out=False, wire=wire)
+
+    before = partial_min.launches
+    dk, ik = serve(q, "int8")
+    assert partial_min.launches == before + 1
+    monkeypatch.setattr(partial_min, "partial_min_scan",
+                        partial_min.partial_min_scan_ref)
+    dp, ip = serve(q, "int8")
+    dh, ih = serve(qwire.roundtrip_int8(q), "f32")
+    assert torch.equal(dp, dh) and torch.equal(ip, ih)
+    dk, ik, dp, ip = (t.cpu().numpy() for t in (dk, ik, dp, ip))
+    qr = qwire.roundtrip_int8(q)
+    atol = 1e-5 * float((qr.astype(np.float64) ** 2).sum(1).max()
+                        + (x.astype(np.float64) ** 2).sum(1).max())
+    for r in range(gb):
+        a, b = set(ik[r].tolist()), set(ip[r].tolist())
+        if a == b:
+            continue
+        edge = dp[r, -1]
+        tol = atol + 1e-5 * abs(edge)
+        assert abs(dk[r, -1] - edge) <= tol, r
+        for ids, dd in ((ik[r], dk[r]), (ip[r], dp[r])):
+            odd = np.isin(ids, list(a ^ b))
+            assert (np.abs(dd[odd] - edge) <= tol).all(), r
+    assert valid.cpu().numpy()[ik[ik >= 0]].all()
 
 
 @pytest.mark.gpu

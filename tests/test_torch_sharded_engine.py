@@ -8,8 +8,8 @@ device filters (float64 columns on each shard), rebuild while querying,
 persistence of sharded graphs, tuning, the fused traversal and its memory
 gate, and grouped queries. Where the JAX test checks a mechanism the port
 dropped on purpose (the DeviceHbmBytes estimate, the upload and drain
-thread pools, the int8 query wire), its counterpart checks the answers and
-the rule the port has instead.
+thread pools, the packed int8 query buffer), its counterpart checks the
+answers and the rule the port has instead.
 """
 import threading
 
@@ -19,7 +19,6 @@ import torch
 
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch.config import global_config
-from vectordb_tpu_torch.errors import NOT_IMPLEMENTED_ERROR, VectorDBError
 from vectordb_tpu_torch.parallel import engine, make_mesh, set_engine_mesh
 from vectordb_tpu_torch.schema import MetricType
 
@@ -456,9 +455,12 @@ def test_sharded_grouped_one_launch_per_super_chunk(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("wire", ["bf16", "int8"])
-def test_sharded_grouped_reduced_query_wires_raise(tmp_path, wire):
-    """The bf16 and int8 query wires (ops/qwire) are not ported: on the
-    sharded plane as on one device they raise NOT_IMPLEMENTED_ERROR."""
+def test_sharded_grouped_reduced_query_wires_raise(tmp_path, monkeypatch,
+                                                   wire):
+    """The bf16 and int8 query wires no longer raise on the sharded plane.
+    The JAX plane's rule holds: int8 reaches the shards' traversal, a bf16
+    override uploads f32 there. The exact re-rank on the host keeps the
+    f32 queries, so distances stay exact."""
     rng = np.random.default_rng(13)
     x = rng.normal(size=(3000, 32)).astype(np.float32)
     _mk_table(tmp_path)
@@ -467,11 +469,21 @@ def test_sharded_grouped_reduced_query_wires_raise(tmp_path, wire):
     table = _table()
     global_config.query_group_size = 2
     global_config.query_dtype = wire
-    with pytest.raises(VectorDBError) as err:
-        table.grouped_dense_search("V", x[:512], table.segment.valid_mask(),
-                                   MetricType.EUCLIDEAN, 10, batch=128,
-                                   mask_cacheable=True)
-    assert err.value.code == NOT_IMPLEMENTED_ERROR
+    wires = []
+    orig = engine.ShardedDenseField.launch_grouped
+    monkeypatch.setattr(engine.ShardedDenseField, "launch_grouped",
+                        lambda self, *a, **k: wires.append(k["wire"])
+                        or orig(self, *a, **k))
+    queries = x[:512] + 0.01 * rng.normal(size=(512, 32)).astype(np.float32)
+    ids, d = table.grouped_dense_search(
+        "V", queries, table.segment.valid_mask(), MetricType.EUCLIDEAN, 10,
+        batch=128, mask_cacheable=True)
+    assert wires == ["int8" if wire == "int8" else "f32"] * 2
+    hits = sum(len(set(ids[i].tolist()) & set(_oracle(x, q, 10).tolist()))
+               for i, q in enumerate(queries))
+    assert hits / (512 * 10) >= 0.97
+    np.testing.assert_allclose(
+        d, ((x[ids] - queries[:, None, :]) ** 2).sum(2), rtol=1e-5)
 
 
 def test_sharded_tuned_iters_ladder_applies(tmp_path):

@@ -157,16 +157,21 @@ def test_delete_then_query_matches_jax(tmp_path):
 
 
 def test_not_ported_paths_raise(tmp_path):
-    """The reduced-precision query wires are not ported: they raise
-    NOT_IMPLEMENTED_ERROR. The sharded plane is (parallel/): ShardCount 2
-    shards a new table."""
+    """Paths that once raised NOT_IMPLEMENTED_ERROR are honoured now: the
+    bf16 and int8 query wires (ops/qwire) serve grouped queries with exact
+    distances, and ShardCount 2 shards a new table (parallel/)."""
     n = 10_000
-    _load(tvdb, tmp_path / "t", "t", n, 8, "EUCLIDEAN", seed=0)
+    x = _load(tvdb, tmp_path / "t", "t", n, 8, "EUCLIDEAN", seed=0)
     t = tvdb._db.databases["db"].tables["t"]
     for wire in ("bf16", "int8"):
         assert tvdb.update_config({"QueryDtype": wire}) == 0
-        with pytest.raises(Exception, match="not ported"):
-            t._query_wire("Emb")
+        assert t._query_wire("Emb") == wire
+        ids, d = t.grouped_dense_search("Emb", x[:256], t.segment.valid_mask(),
+                                        MetricType.EUCLIDEAN, 5, batch=128)
+        assert (ids[:, 0] == np.arange(256)).all()
+        np.testing.assert_allclose(
+            d, ((x[ids] - x[:256, None, :]) ** 2).sum(2), rtol=1e-5,
+            atol=1e-6)
     assert tvdb.update_config({"ShardCount": 2}) == 0
     tvdb.create_table("s", _fields(8, "EUCLIDEAN"))
     s = tvdb._db.databases["db"].tables["s"]
@@ -176,8 +181,10 @@ def test_not_ported_paths_raise(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, vectordb_tpu_torch, vectordb_tpu_torch.parallel; "
+    code = ("import sys, vectordb_tpu_torch, vectordb_tpu_torch.parallel, "
+            "vectordb_tpu_torch.ops.qwire; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'; "
             "assert not any(m == 'vectordb_tpu' or m.startswith("
             "'vectordb_tpu.') for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

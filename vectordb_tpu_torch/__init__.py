@@ -15,8 +15,9 @@ and the row gather of traversal, of the IVF build and of sparse scoring
 torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). With ShardCount >= 2
 a table's dense fields are sharded over a list of devices (parallel/: one
 process drives every shard; `parallel.set_engine_mesh` can place several
-shards on one card). The reduced-precision query wires are not ported yet
-and raise NOT_IMPLEMENTED_ERROR; see ROADMAP.md.
+shards on one card). QueryDtype selects the grouped paths' query wire
+(ops/qwire: f32, bf16 or block-int8; "auto" follows the tuner): the
+candidates come from the wire's values and `@distance` stays exact.
 
 A data directory written by either package opens in the other.
 

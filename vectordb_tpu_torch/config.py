@@ -5,16 +5,19 @@ Mirrors the semantics of the reference's global `Config` of validated atomics
 `update_config`, and it reports whether running query state must be swapped.
 
 The keys are those of vectordb_tpu.config, so one update_config payload works
-for both engines. This package reads the ones its slices use: the flat path
-(MasterQueueSize, PreFilter, WalTextFormat, ShardCount (>= 2 is refused),
-QueryBatchWindowMs, DeviceRerank, DeviceRerankMaxBytes, QueryGroupSize,
-QueryDtype, FlatServe, FlatServeMaxRows) and the graph index
+for both engines. This package reads the ones that steer its paths: the
+query path (MasterQueueSize, PreFilter, WalTextFormat, ShardCount (>= 2
+shards the dense fields, parallel/), QueryBatchWindowMs, DeviceRerank,
+DeviceRerankMaxBytes, QueryGroupSize, QueryDtype, FlatServe,
+FlatServeMaxRows, RebuildIntervalSeconds) and the graph index
 (MinimalGraphSize, SearchEf, BruteForceThreshold, GraphKnnK, GraphDegree,
 GraphAlpha, Beam*, IvfKnnThreshold, IvfProbes, WarmupBuckets, BuildSearch*,
 FusedTraversal, FusedMaxBytes, AutoTuneSearch, AutoTuneTargetRecall). The
-others, DeviceHbmBytes among them (the port asks the card for its free
-memory), steer paths that are not ported yet and are accepted and kept
-only.
+others are accepted and kept only: the TPU relay's pools (DispatchAhead,
+UploadThreads, DrainThreads), DeviceHbmBytes (the port asks the card for
+its free memory), UseBf16Matmul, and the reference's executor and queue
+knobs that neither engine reads (IntraQueryThreads, LocalQueueSize,
+GlobalSyncInterval, NumExecutorPerField, RebuildThreads).
 """
 from __future__ import annotations
 
@@ -81,8 +84,8 @@ class Config:
         self.device_hbm_bytes = 16 << 30
         self.auto_tune_search = True
         self.auto_tune_target_recall = 0.995
-        # Query upload dtype: "f32" | "bf16" | "int8" | "auto". Only the f32
-        # wire is ported ("auto" means f32); bf16 and int8 raise.
+        # Query wire of the grouped paths (ops/qwire): "f32" | "bf16" |
+        # "int8" | "auto" (the wire tune_search_ef validated, else f32).
         self.query_dtype = "auto"
         # Flat-serve ("auto" | "on" | "off"): serve throughput batches from
         # a whole-table partial-min scan + exact f32 re-rank when the table

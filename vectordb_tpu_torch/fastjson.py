@@ -3,10 +3,10 @@
 The REST response encoder is the single-core serving hot path: stdlib
 json.dumps spends its time on shortest-repr float formatting (the
 reference serializes responses in compiled C++, oatpp DTOs in
-web_controller.hpp). The REST server is not ported yet; this loader is
-kept for it. The C encoder formats
-float32-origin values with %.9g (exact binary32 round-trip, ~15x
-faster) and falls back to json.dumps per call on any unsupported type,
+web_controller.hpp); rest/server.py encodes its responses with it
+(dumps_bytes, and table.ColumnarRows.encode_json for query rows). The C
+encoder formats float32-origin values with %.9g (exact binary32
+round-trip, ~15x faster) and falls back to json.dumps per call on any unsupported type,
 or entirely when the extension is missing. Disable with
 VECTORDB_TPU_NATIVE=off.
 """

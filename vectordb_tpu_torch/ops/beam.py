@@ -35,8 +35,10 @@ Translation notes:
     device scalar), so the loop never waits for the device and one
     traversal can later be captured as a CUDA graph. Deeper walks test the
     convergence on the host before each iteration.
-  - The packed query wires (ops/qwire, `packed_gb`) are not ported:
-    beam_search_grouped takes f32 queries only.
+  - beam_search_grouped takes f32 queries and a query wire (ops/qwire):
+    traversal runs on the wire's values, as JAX's decoded `packed_gb`
+    buffer, and the exact re-rank on the f32 queries, where JAX re-ranks
+    against the wire's values.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from ..schema import MetricType
+from . import qwire
 from .gather import gather_rows
 
 DEFAULT_EXPAND = 4  # beam entries expanded per iteration (M)
@@ -300,16 +303,22 @@ def beam_search_grouped(queries_g, table, norms, adjacency, rep_ids, valid,
                         table_f32, metric: int, beam_width: int, expand: int,
                         max_iters: int, num_seeds: int, term_width: int,
                         k_cand: int, k_out: int, compact: int = 0,
-                        fused=None, scale=None, pack_out: bool = False):
+                        fused=None, scale=None, pack_out: bool = False,
+                        wire: str = "f32"):
     """Throughput mode: G query batches ([G, B, D] f32) through
     beam_search_topk in order, each followed by the exact f32 re-rank to
     k_out when table_f32 is given (else the k_cand approximate candidates
-    go back for the host re-rank). pack_out returns one [G, B, 2w] int32
+    go back for the host re-rank). Traversal scores the query wire's
+    values (ops/qwire.apply_wire, one prologue over the G batches); the
+    re-rank scores the f32 queries. pack_out returns one [G, B, 2w] int32
     array: f32 distance bits in [..., :w], ids in [..., w:]
     (unpack_wire)."""
+    g, b, dp = queries_g.shape
+    wired = qwire.apply_wire(queries_g.reshape(g * b, dp),
+                             wire).reshape(g, b, dp)
     ds, ids = [], []
-    for q in queries_g:
-        d, i = beam_search_topk(q, table, norms, adjacency, rep_ids, valid,
+    for q, qw in zip(queries_g, wired):
+        d, i = beam_search_topk(qw, table, norms, adjacency, rep_ids, valid,
                                 metric, beam_width, expand, max_iters,
                                 num_seeds, term_width, k_cand, compact,
                                 fused, scale)

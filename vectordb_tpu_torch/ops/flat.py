@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..schema import MetricType
-from . import partial_min
+from . import partial_min, qwire
 
 # Rows per streamed chunk of the running-top-k scan.
 DEFAULT_CHUNK = 8192
@@ -115,17 +115,21 @@ def flat_serve_grouped(q_flat: torch.Tensor, table: torch.Tensor,
                        norms: torch.Tensor, mask: torch.Tensor,
                        table_f32: Optional[torch.Tensor], metric: int,
                        k_cand: int, k_out: int, n_valid: int,
-                       use_pallas: bool = True, pack_out: bool = True):
+                       use_pallas: bool = True, pack_out: bool = True,
+                       wire: str = "f32"):
     """Throughput flat serving: a [G*B, Dp] f32 query block against the
     whole device table.
 
+      0. the query wire's rounding (ops/qwire.apply_wire; "f32" leaves the
+         queries as they are): steps 1 and 2 score the wire's values.
       1. partial-min scan (ops/partial_min: the CUDA kernel on the card) —
          [GB, 2N/fold] survivors, scores never stored. use_pallas=False:
          the full masked score matrix instead (CPU / small tables).
       2. exact top-k_cand over the survivors.
-      3. exact f32 re-rank of the candidates (beam._exact_rerank_device)
-         -> top-k_out with exact distances; skipped when table_f32 is None
-         (the candidates go to the host re-rank).
+      3. exact f32 re-rank of the candidates against the f32 queries
+         (beam._exact_rerank_device) -> top-k_out with exact distances;
+         skipped when table_f32 is None (the candidates go to the host
+         re-rank). The JAX package re-ranks against the wire's values.
       4. optional packed int32 wire ([GB, 2w]: f32 distance bits in [:w],
          ids in [w:]; see beam.unpack_wire).
 
@@ -134,9 +138,9 @@ def flat_serve_grouped(q_flat: torch.Tensor, table: torch.Tensor,
     excludes rows past record_number). The name use_pallas is kept from
     the TPU package: True selects the partial-min scan.
     """
-    qs = q_flat.to(table.dtype)
+    qf32 = qwire.apply_wire(q_flat.float(), wire)
+    qs = qf32.to(table.dtype)
     if use_pallas:
-        qf32 = q_flat.float()
         q_norms = (qf32 * qf32).sum(dim=1)
         vals, vids = partial_min.partial_min_scan(
             qs, q_norms, 0, table, norms, metric, n_valid=n_valid,

@@ -19,8 +19,12 @@ hybrid_search fuses per-field result sets (rrf or weighted). With
 ShardCount >= 2 each dense field lives on the sharded plane
 (parallel/engine.py: rows interleaved over the engine mesh's shards, one
 graph a shard, one merge a batch, the exact re-rank on the host mirror).
-The reduced-precision query wires are not ported yet: they raise
-NOT_IMPLEMENTED_ERROR, never answer differently.
+QueryDtype picks the query wire of the grouped paths (ops/qwire): "auto"
+follows the wire that tune_search_ef validated, "f32", "bf16" or "int8"
+force one. The candidates come from the wire's values, as in the JAX
+package; the exact re-rank scores the f32 queries, so `@distance` stays
+exact under every wire (the JAX package re-ranks against the wire's
+values).
 
 Filter semantics follow the TPU package: filters without `@distance` fold
 into the scan mask. Numeric, bool and geo filters evaluate on the device
@@ -42,8 +46,7 @@ import numpy as np
 import torch
 
 from .config import global_config
-from .errors import (DB_UNEXPECTED_ERROR, NOT_IMPLEMENTED_ERROR, USER_ERROR,
-                     Status, VectorDBError)
+from .errors import DB_UNEXPECTED_ERROR, USER_ERROR, Status, VectorDBError
 from .expr.evaluator import FilterCompiler
 from .expr.parser import ExprNode, parse_expr
 from .facets import FacetExecutor
@@ -51,7 +54,7 @@ from .logger import logger
 from .metrics import metrics
 from .ops import beam as beam_ops
 from .ops import flat as flat_ops
-from .ops import partial_min
+from .ops import partial_min, qwire
 from .ops import sparse as sparse_ops
 from .schema import (DENSE_VECTOR_TYPES, SPARSE_VECTOR_TYPES, FieldType,
                      MetricType, TableSchema)
@@ -73,12 +76,6 @@ BATCH_BUCKETS = (16, 128, 512, 2048)
 # Survivor-width cap of the partial-min path: top-k over more than this
 # many survivor columns is slower than the plain scan it replaces.
 MAX_SURVIVORS = 8192
-
-
-def _not_ported(what: str) -> VectorDBError:
-    return VectorDBError(NOT_IMPLEMENTED_ERROR,
-                         f"{what} is not ported to vectordb_tpu_torch yet "
-                         "(ROADMAP queue 1); use vectordb_tpu for it")
 
 
 class ColumnarRows:
@@ -166,6 +163,9 @@ class Table:
         # graph artifacts.
         self.search_ef_override: Dict[str, int] = {}
         self.search_iters_override: Dict[str, int] = {}
+        # Per-field query wire ("bf16" / "int8") validated by
+        # tune_search_ef; honoured only when QueryDtype is "auto".
+        self.search_qdtype_override: Dict[str, str] = {}
         self._tuned_report: Dict[str, Any] = {}
         self._load_tuned_ef()
         # Sharded data plane (ShardCount >= 2): each dense field gets a
@@ -523,8 +523,9 @@ class Table:
 
     def _load_tuned_ef(self) -> None:
         """Read the tuning sidecar (the JAX package's format). An absent
-        or zero iters entry clears the override; a reduced-precision
-        "qdtype" entry is ignored (only the f32 wire is ported)."""
+        or zero iters entry, and an absent or "f32" qdtype entry, clear
+        their override: followers reload the sidecar after every re-tune
+        of the leader."""
         try:
             with open(self._tuned_ef_path()) as f:
                 data = json.load(f)
@@ -536,6 +537,10 @@ class Table:
                         self.search_iters_override[str(k)] = int(v["iters"])
                     else:
                         self.search_iters_override.pop(str(k), None)
+                    if v.get("qdtype") in ("bf16", "int8"):
+                        self.search_qdtype_override[str(k)] = v["qdtype"]
+                    else:
+                        self.search_qdtype_override.pop(str(k), None)
                 elif int(v) > 0:  # legacy format: bare ef int
                     self.search_ef_override[str(k)] = int(v)
         except (OSError, ValueError, AttributeError, TypeError):
@@ -550,7 +555,7 @@ class Table:
         rep = self._tuned_report
         merged = {f: {"ef": e,
                       "iters": self.search_iters_override.get(f, 0),
-                      "qdtype": "f32",
+                      "qdtype": self.search_qdtype_override.get(f, "f32"),
                       "id_recall": rep.get(f, {}).get("id_recall", 0.0),
                       "ood_recall": rep.get(f, {}).get("ood_recall", 0.0)}
                   for f, e in self.search_ef_override.items()}
@@ -573,9 +578,15 @@ class Table:
         The workload is `sample` alive rows plus noise-perturbed copies of
         them (q = x + 0.1 * sigma * noise, per-column sigma); a rung counts
         only when both halves meet the target. Ground truth is the exact
-        flat path over the same queries (flat scan + f32 re-rank). The JAX
-        package then also validates reduced-precision query wires; that
-        step waits for the ops/qwire port, so the f32 wire stays."""
+        flat path over the same queries (flat scan + f32 re-rank).
+
+        When the f32 rung met the target and QueryDtype is "auto", the
+        reduced query wires are validated next, int8 first, then bf16: the
+        search re-runs on queries pre-rounded by the wire's host round trip
+        (ops/qwire, bitwise what the grouped programs score), at the chosen
+        rung and then at the next; the first wire that meets the target
+        becomes the field's search_qdtype_override, at the rung it met it
+        (JAX vectordb_tpu/table.py:849-918)."""
         report: Dict[str, Any] = {}
         sharded = self.sharded_fields
         fields = ([field_name] if field_name
@@ -651,20 +662,58 @@ class Table:
                 rec_id, rec_ood = r_id, r_ood
                 if rec >= target_recall:
                     break
-            self.search_ef_override[fname] = chosen[0]
-            if chosen[1]:
-                self.search_iters_override[fname] = chosen[1]
-            else:
-                self.search_iters_override.pop(fname, None)
+
+            def set_rung(rung):
+                self.search_ef_override[fname] = rung[0]
+                if rung[1]:
+                    self.search_iters_override[fname] = rung[1]
+                else:
+                    self.search_iters_override.pop(fname, None)
+
+            # The wires run with the f32 rung installed: a full-depth rung
+            # (iters 0) reads the iters override, as in the JAX package.
+            set_rung(chosen)
+            self.search_qdtype_override.pop(fname, None)
+            qd_recall = 0.0
+            if (chosen_recall >= target_recall
+                    and getattr(self.config, "query_dtype", "f32") == "auto"):
+                idx = self.TUNE_LADDER.index(chosen)
+                rungs = [chosen] + list(self.TUNE_LADDER[idx + 1:idx + 2])
+                for wname in ("int8", "bf16"):
+                    q_r = qwire.roundtrip(queries, wname)
+                    for ef, iters in rungs:
+                        ids, _ = self.batch_dense_search(
+                            fname, q_r, valid, metric, kk,
+                            mask_cacheable=True, ef=ef, iters=iters)
+                        w_id, w_ood = split_recall(ids)
+                        if min(w_id, w_ood) >= target_recall:
+                            break
+                    else:
+                        continue
+                    # The wire is operative: report its recalls.
+                    qd_recall = min(w_id, w_ood)
+                    chosen, chosen_recall = (ef, iters), qd_recall
+                    rec_id, rec_ood = w_id, w_ood
+                    set_rung(chosen)
+                    self.search_qdtype_override[fname] = wname
+                    tried.append({"ef": ef, "iters": iters,
+                                  "recall": round(qd_recall, 4),
+                                  "id_recall": round(w_id, 4),
+                                  "ood_recall": round(w_ood, 4),
+                                  "qdtype": wname})
+                    break
             report[fname] = {"ef": chosen[0], "iters": chosen[1],
                              "recall": round(chosen_recall, 4),
                              "id_recall": round(rec_id, 4),
                              "ood_recall": round(rec_ood, 4),
                              "target": target_recall, "tried": tried,
-                             "qdtype": "f32"}
+                             "qdtype": self.search_qdtype_override.get(
+                                 fname, "f32"),
+                             "qdtype_wire_recall": round(qd_recall, 4)}
             self._tuned_report[fname] = report[fname]
             logger.info(f"tune_search_ef {self.schema.name}.{fname}: "
                         f"ef={chosen[0]} iters={chosen[1]} "
+                        f"wire={report[fname]['qdtype']} "
                         f"recall@{kk}={chosen_recall:.4f} "
                         f"(id {rec_id:.4f} / ood {rec_ood:.4f})")
         self._save_tuned_ef()
@@ -714,13 +763,14 @@ class Table:
         return store, seg.device_view_f32(field_name).buf, use_kernel
 
     def _query_wire(self, field_name: str) -> str:
-        """Query upload dtype. Only "f32" is ported: the reduced-precision
-        wires (ops/qwire) are not, so an explicit QueryDtype of bf16 or
-        int8 raises instead of silently uploading f32."""
+        """The grouped paths' query wire for a field: "f32", "bf16" or
+        "int8". QueryDtype "auto" follows the wire tune_search_ef validated
+        against the recall target (else "f32"); an explicit QueryDtype
+        forces its wire (JAX vectordb_tpu/table.py:640-649)."""
         mode = getattr(self.config, "query_dtype", "f32")
-        if mode in ("bf16", "int8"):
-            raise _not_ported(f"QueryDtype={mode} (ops/qwire)")
-        return "f32"
+        if mode == "auto":
+            return self.search_qdtype_override.get(field_name, "f32")
+        return mode
 
     def batch_dense_search(self, field_name: str, queries: np.ndarray,
                            valid: np.ndarray, metric: MetricType, k: int,
@@ -829,7 +879,7 @@ class Table:
         if boost > 1:
             term = int(min(max(term, bw // 4), bw))
         max_iters = bw if boost > 1 else self._field_iters(field_name, bw)
-        self._query_wire(field_name)
+        wire = self._query_wire(field_name)
         q_total = queries.shape[0]
         out_w = k_eff if tf32 is not None else k_cand
         ids_all = np.empty((q_total, out_w), dtype=np.int64)
@@ -850,7 +900,7 @@ class Table:
                 int(metric), int(bw), int(self.config.beam_expand),
                 int(max_iters), 32, term, int(k_cand), int(k_eff),
                 0 if fused is not None else int(self.config.beam_compact),
-                fused=fused, scale=fscale, pack_out=True)
+                fused=fused, scale=fscale, pack_out=True, wire=wire)
             d_h, ids_np = beam_ops.unpack_wire(
                 packed.reshape(-1, packed.shape[-1])[:real].cpu().numpy(),
                 out_w)
@@ -895,7 +945,7 @@ class Table:
         # below completes the rows (the TPU package unpacks k_eff columns
         # there, vectordb_tpu/table.py:1143-1144).
         out_w = min(k_eff, k_cand) if tf32 is not None else k_cand
-        self._query_wire(field_name)
+        wire = self._query_wire(field_name)
         q_total = queries.shape[0]
         ids_all = np.empty((q_total, out_w), dtype=np.int64)
         d_all = np.empty((q_total, out_w), dtype=np.float64)
@@ -912,7 +962,8 @@ class Table:
             packed = flat_ops.flat_serve_grouped(
                 torch.from_numpy(qp).to(dev), store.buf, store.norms, dm,
                 tf32, int(metric), int(k_cand), int(k_eff),
-                int(store.capacity), use_pallas=use_kernel, pack_out=True)
+                int(store.capacity), use_pallas=use_kernel, pack_out=True,
+                wire=wire)
             d_h, ids_np = beam_ops.unpack_wire(
                 packed[:real].cpu().numpy(), out_w)
             ids_all[s:s + real] = ids_np
@@ -964,7 +1015,9 @@ class Table:
         it = self._field_iters(field_name, beam)
         compact = self._sharded_compact(sf)
         fused = self._sharded_fused(sf, field_name)
-        self._query_wire(field_name)
+        # The JAX plane's rule: only int8 changes the sharded upload, a
+        # bf16 override uploads f32 (vectordb_tpu/table.py:1263-1280).
+        wire = "int8" if self._query_wire(field_name) == "int8" else "f32"
         q_total = queries.shape[0]
         cand_all = np.full((q_total, k_cand), -1, dtype=np.int64)
         super_chunk = batch * g_max
@@ -980,7 +1033,7 @@ class Table:
                 qp.reshape(g, batch, -1), valid, metric, k_cand,
                 beam_width=beam, expand=self.config.beam_expand,
                 term_width=term, mask_version=ver, compact=compact,
-                fused=fused, iters=0 if it >= beam else it)
+                fused=fused, iters=0 if it >= beam else it, wire=wire)
             _, ids_np = beam_ops.unpack_wire(
                 packed.reshape(-1, packed.shape[-1])[:real].cpu().numpy(),
                 k_cand)
