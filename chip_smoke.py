@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA libraries from vectordb_tpu_torch/csrc (the partial-min
-kernel for ctypes, the gather kernel with its PyTorch operator; one nvcc
-each, in parallel) and holds each kernel against its plain PyTorch version
-on the card: the partial-min scan at the flat-serve shape (B = 8192
+Builds the CUDA libraries from vectordb_tpu_torch/csrc (the partial-min
+kernel for ctypes, the gather kernel and the sparse scorer's CSR kernel
+each with its PyTorch operator; one nvcc each, in parallel) and holds each
+kernel against its plain PyTorch version on the card: the partial-min scan
+at the flat-serve shape (B = 8192
 queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
 (B = 1,024, N = 1,048,576, exclude_self, n_valid); the row gather, bit for
 bit, at every row width the main path gathers (gather.MAIN_PATH_SHAPES:
@@ -53,7 +54,14 @@ read just after (gathers also by row width):
     oracle on the card, the scorer's error and time beside the JAX
     package's prefix difference, 256 hybrid queries (rrf and weighted)
     against the fusion rule recomputed from single-field queries, and 64
-    sparse + 64 hybrid requests over REST;
+    sparse + 64 hybrid requests over REST (the sparse scorer's kernel,
+    csr_ip, launched once a query with sparse terms, with the scatter in
+    shared memory; no 4-byte gather); then csr_ip against its plain
+    version at the 1M x 120M-nnz shape and at a scatter too large for
+    shared memory (a query up to term 200,000), timed in turns with the
+    plain version, the three-pass route it replaced (gather kernel,
+    multiply, segment_reduce), its global-memory variant and cuSPARSE's
+    SpMV (the library call for the same function);
   - IVF build: 3,000,000 x 128 clustered rows, vdb.rebuild() at the
     default IvfKnnThreshold (ops/ivf.ivf_knn builds the KNN graph), its
     neighbour recall@64 against the exact top-64 on the card, 16,384
@@ -96,7 +104,7 @@ import torch
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build, rest
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import gather, ivf, partial_min, qwire
+from vectordb_tpu_torch.ops import gather, ivf, partial_min, qwire, sparse
 from vectordb_tpu_torch.ops.sparse import SparseVector
 from vectordb_tpu_torch.schema import MetricType
 
@@ -121,6 +129,14 @@ CLI_BOOT_S = 120
 SPARSE_N, SPARSE_VOCAB, SPARSE_DRAWS = 1_000_000, 30_522, 203
 SPARSE_Q, SPARSE_FILTERED_Q, HYBRID_Q = 256, 64, 256
 REST_SPARSE, REST_HYBRID = 64, 64
+# The sparse scorer's kernel at a scatter too large for shared memory: a
+# column of rows of 0-239 term ids below 250,000 and a query whose largest
+# term is 200,000 (hashed or large term ids; stored ids past it read the
+# scatter's trailing 0).
+CSR_L2_ROWS, CSR_L2_TERMS, CSR_L2_QMAX = 100_000, 250_000, 200_000
+# Kernel vs plain version: the same f32 products added in another order;
+# within rtol 1e-5 + 1e-5 * sum |q_i x_i| of the row (PERF.md section 2).
+CSR_RTOL, CSR_ATOL_SCALE = 1e-5, 1e-5
 # IVF build phase: rows (the default IvfKnnThreshold), rows whose KNN
 # lists are held to the exact top-64, grouped and single queries.
 IVF_N, IVF_SAMPLE, IVF_Q, IVF_SINGLE = 3_000_000, 4096, 16_384, 256
@@ -197,12 +213,15 @@ def reset_counts() -> None:
     """Every kernel's launch counts to 0, just before a phase."""
     partial_min.reset_launches()
     gather.reset_launches()
+    sparse.reset_launches()
 
 
 def read_counts() -> dict:
     """The launch counts since reset_counts(), just after a phase."""
     return {"partial_min": partial_min.launches, "gather": gather.launches,
-            "gather_by_row_bytes": dict(gather.launches_by_row_bytes)}
+            "gather_by_row_bytes": dict(gather.launches_by_row_bytes),
+            "csr_ip": sparse.launches,
+            "csr_ip_by_variant": dict(sparse.launches_by_variant)}
 
 
 def check_wires(dev: torch.device) -> dict:
@@ -282,10 +301,10 @@ def wire_pass(table, wire: str, queries, valid, batch: int, x, want,
 
 def device_profile(fn) -> dict:
     """fn() under torch.profiler: its wall, the device time of every kernel
-    and copy, the gather kernel's part of it, and the device's idle share
-    of the wall (the profiler's own host cost counts as idle). The share is
-    not clamped: kernels that overlapped on several streams would count
-    twice and show as a negative share."""
+    and copy, the gather kernel's and the csr_ip kernel's parts of it, and
+    the device's idle share of the wall (the profiler's own host cost counts
+    as idle). The share is not clamped: kernels that overlapped on several
+    streams would count twice and show as a negative share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -296,7 +315,7 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = gather_us = 0.0
+    device_us = gather_us = csr_us = 0.0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -306,9 +325,13 @@ def device_profile(fn) -> dict:
         device_us += us
         if "gather_rows" in ev.key:
             gather_us += us
+        if "csr_ip_kernel" in ev.key:
+            csr_us += us
     return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
             "gather_ms": gather_us / 1e3,
             "gather_share": gather_us / device_us if device_us else 0.0,
+            "csr_ip_ms": csr_us / 1e3,
+            "csr_ip_share": csr_us / device_us if device_us else 0.0,
             "idle_share": 1.0 - device_us / 1e3 / wall_ms}
 
 
@@ -1235,6 +1258,106 @@ def prefix_difference_ip(index, qd: torch.Tensor) -> torch.Tensor:
     return c[offs[1:]] - c[offs[:-1]]
 
 
+def compare_csr_ip(idx, val, offs, q, what: str) -> float:
+    """sparse.csr_ip (the kernel) against csr_ip_ref on the same inputs,
+    within CSR_RTOL plus CSR_ATOL_SCALE x sum |q_i x_i| of each row; every
+    empty row 0. Returns the max abs error."""
+    k = sparse.csr_ip(idx, val, offs, q)
+    p = sparse.csr_ip_ref(idx, val, offs, q)
+    mag = sparse.csr_ip_ref(idx, val.abs(), offs, q.abs())
+    torch.cuda.synchronize()
+    if k.shape != p.shape:
+        raise AssertionError(f"csr_ip {what}: shapes {k.shape} vs {p.shape}")
+    bad = (k - p).abs() > CSR_RTOL * p.abs() + CSR_ATOL_SCALE * mag
+    if bool(bad.any()):
+        raise AssertionError(f"csr_ip {what}: {int(bad.sum())} rows differ "
+                             "from the plain version beyond the tolerance")
+    if bool((k[offs[1:] == offs[:-1]] != 0).any()):
+        raise AssertionError(f"csr_ip {what}: an empty row is not 0")
+    return float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
+
+
+def check_csr_ip(dev: torch.device, index, qd: torch.Tensor) -> dict:
+    """The sparse scorer's kernel against its plain version at the main
+    path's shape (the index's CSR arrays, a query's scatter over BERT's
+    vocabulary with its trailing 0) and at a scatter too large for shared
+    memory; at each, in turns: the kernel, the plain version and, at the
+    main shape, the route it replaced (the gather kernel, the multiply and
+    segment_reduce), the kernel's global-memory variant, and cuSPARSE's
+    SpMV (torch.sparse_csr_tensor @ q on the int32 CSR: the library call
+    for the same function, never called by the port). Also the host µs of
+    a call on a 1,000-row column beside the gather operator's."""
+    idx, val, offs, _ = index._device_arrays()
+    n_rows, nnz = offs.numel() - 1, idx.numel()
+    out = {"rows": n_rows, "nnz": nnz, "len_q": qd.numel(),
+           "max_abs_err": compare_csr_ip(idx, val, offs, qd, "main")}
+    op = sparse._operator()
+    csr = torch.sparse_csr_tensor(offs.int(), idx, val,
+                                  size=(n_rows, qd.numel()), device=dev)
+    lib = csr @ qd
+    want = sparse.csr_ip_ref(idx, val, offs, qd)
+    out["library_max_abs_err"] = float((lib.double() - want.double())
+                                       .abs().max())
+    del lib, want
+
+    def three_pass():
+        contrib = gather.gather_rows(qd, idx)
+        contrib.mul_(val)
+        return torch.segment_reduce(contrib, "sum", offsets=offs)
+
+    out.update(in_turns({
+        "ms": lambda: sparse.csr_ip(idx, val, offs, qd),
+        "plain_ms": lambda: sparse.csr_ip_ref(idx, val, offs, qd),
+        "three_pass_ms": three_pass,
+        "l2_variant_ms": lambda: op(idx, val, offs, qd, False),
+        "library_ms": lambda: csr @ qd},
+        lambda c: stream_ms(c, inner=10), rounds=7))
+    del csr
+    bound, bound_by = partial_min.bound_ms(
+        0, sparse.csr_ip_cost(nnz, n_rows, qd.numel()))
+    out.update(bound_ms=bound, bound_by=bound_by,
+               pct_of_bound=100.0 * bound / out["ms"],
+               l2_variant_pct_of_bound=100.0 * bound / out["l2_variant_ms"])
+    log(f"kernel csr_ip main: {json.dumps(out)}")
+
+    # A scatter too large for shared memory, on a column made on the card.
+    g = torch.Generator(device=dev).manual_seed(5)
+    lens = torch.randint(0, 240, (CSR_L2_ROWS,), generator=g, device=dev)
+    offs2 = torch.zeros(CSR_L2_ROWS + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offs2[1:])
+    nnz2 = int(offs2[-1])
+    idx2 = torch.randint(0, CSR_L2_TERMS, (nnz2,), generator=g, device=dev,
+                         dtype=torch.int32)
+    val2 = torch.empty(nnz2, device=dev).exponential_(generator=g)
+    q2 = torch.zeros(CSR_L2_QMAX + 2, device=dev)
+    terms = torch.randint(0, CSR_L2_QMAX, (2000,), generator=g, device=dev)
+    q2[terms] = torch.rand(2000, generator=g, device=dev)
+    q2[CSR_L2_QMAX] = 1.0
+    if sparse.scatter_variant(q2.numel()) != "l2":
+        raise AssertionError("the large scatter fits in shared memory")
+    large = {"rows": CSR_L2_ROWS, "nnz": nnz2, "len_q": q2.numel(),
+             "max_abs_err": compare_csr_ip(idx2, val2, offs2, q2, "l2")}
+    large.update(in_turns({
+        "ms": lambda: sparse.csr_ip(idx2, val2, offs2, q2),
+        "plain_ms": lambda: sparse.csr_ip_ref(idx2, val2, offs2, q2)},
+        lambda c: stream_ms(c, inner=10), rounds=5))
+    bound2, _ = partial_min.bound_ms(
+        0, sparse.csr_ip_cost(nnz2, CSR_L2_ROWS, q2.numel()))
+    large.update(bound_ms=bound2, pct_of_bound=100.0 * bound2 / large["ms"])
+    # Host µs of a call whose device time is short: 1,000 rows.
+    small = offs2[:1001].clone()
+    ids = torch.zeros(1000, dtype=torch.int32, device=dev)
+    large.update(in_turns({
+        "host_us_1000_rows": lambda: sparse.csr_ip(idx2, val2, small, qd),
+        "gather_host_us_1000_ids": lambda: gather.gather_rows(qd, ids)},
+        host_us, rounds=5))
+    out["large_scatter"] = large
+    log(f"kernel csr_ip large scatter: {json.dumps(large)}")
+    del idx2, val2, offs2, q2
+    torch.cuda.empty_cache()
+    return out
+
+
 def fuse(lists, weights, rerank: str, limit: int):
     """The hybrid fusion rule, recomputed from per-field (ids, distances)
     lists: rrf w / (60 + rank + 1) or weighted w * (1 - (d - lo) / (hi -
@@ -1255,6 +1378,19 @@ def fuse(lists, weights, rerank: str, limit: int):
             score[i] = score.get(i, 0.0) + float(c)
     top = sorted(score.items(), key=lambda kv: (-kv[1], kv[0]))[:limit]
     return [i for i, _ in top], [-v for _, v in top]
+
+
+def check_scorer_counts(counts: dict, n_queries: int, what: str,
+                        sparse_only: bool = True) -> None:
+    """The sparse scorer's kernel launched once a query with sparse terms,
+    with the scatter in shared memory; a phase of sparse queries alone
+    launched no gather of 4-byte rows (the scorer's route before csr_ip)."""
+    if counts["csr_ip"] != n_queries or \
+            counts["csr_ip_by_variant"] != {"shared": n_queries}:
+        raise AssertionError(f"{what}: csr_ip launches {counts}, want "
+                             f"{n_queries} of the shared-memory variant")
+    if sparse_only and counts["gather_by_row_bytes"].get(4, 0):
+        raise AssertionError(f"{what}: 4-byte gathers {counts}")
 
 
 def run_sparse(dev: torch.device) -> dict:
@@ -1310,9 +1446,7 @@ def run_sparse(dev: torch.device) -> dict:
             results.append(hits)
         torch.cuda.synchronize()
         out["query_counts"] = read_counts()
-        if out["query_counts"]["gather"] < SPARSE_Q:
-            raise AssertionError("sparse queries did not launch the gather "
-                                 "kernel once each")
+        check_scorer_counts(out["query_counts"], SPARSE_Q, "sparse queries")
         lat = np.asarray(lat) * 1e3
         out["query_ms"] = {"p50": float(np.percentile(lat, 50)),
                            "p99": float(np.percentile(lat, 99))}
@@ -1323,6 +1457,8 @@ def run_sparse(dev: torch.device) -> dict:
                        for q in qs[:SPARSE_FILTERED_Q]]
         torch.cuda.synchronize()
         out["filtered_counts"] = read_counts()
+        check_scorer_counts(out["filtered_counts"], SPARSE_FILTERED_Q,
+                            "filtered sparse queries")
 
         # Oracles: float64 CSR products on the card.
         csr = torch.sparse_csr_tensor(
@@ -1361,7 +1497,6 @@ def run_sparse(dev: torch.device) -> dict:
         times = in_turns({
             "scorer_ms": lambda: index.device_scores(
                 q, MetricType.DOT_PRODUCT),
-            "gather_ms": lambda: gather.gather_rows(qd, index._dev[0]),
             "prefix_difference_ms": lambda: prefix_difference_ip(index, qd)},
             lambda c: stream_ms(c, inner=10), rounds=5)
         out.update(times)
@@ -1392,6 +1527,8 @@ def run_sparse(dev: torch.device) -> dict:
             hres.append(rows)
         torch.cuda.synchronize()
         out["hybrid_counts"] = read_counts()
+        check_scorer_counts(out["hybrid_counts"], HYBRID_Q, "hybrid queries",
+                            sparse_only=False)
         lat = np.asarray(lat) * 1e3
         out["hybrid_ms"] = {"p50": float(np.percentile(lat, 50)),
                             "p99": float(np.percentile(lat, 99))}
@@ -1416,6 +1553,7 @@ def run_sparse(dev: torch.device) -> dict:
         out["rest"] = run_rest_sparse(qs, hq, results, hres)
         log(f"rest sparse + hybrid: {json.dumps(out['rest'])}")
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["csr_ip"] = check_csr_ip(dev, index, qd)
         del index
         vdb.unload_db("sparse")
     torch.cuda.empty_cache()
@@ -1455,6 +1593,8 @@ def run_rest_sparse(qs, hq, results, hres) -> dict:
             lat.append(secs)
         torch.cuda.synchronize()
         out["counts"] = read_counts()
+        check_scorer_counts(out["counts"], REST_SPARSE + REST_HYBRID,
+                            "REST sparse + hybrid", sparse_only=False)
         conn.close()
         lat = np.asarray(lat) * 1e3
         out["sparse_p50_ms"] = float(np.percentile(lat[:REST_SPARSE], 50))
@@ -1929,13 +2069,17 @@ def main() -> int:
     for c in phases.values():
         for rb, k in c["gather_by_row_bytes"].items():
             by_width[rb] = by_width.get(rb, 0) + k
+    by_variant = {}
+    for c in phases.values():
+        for v, k in c["csr_ip_by_variant"].items():
+            by_variant[v] = by_variant.get(v, 0) + k
     log(f"launches by phase: {json.dumps(phases)}")
-    for phase, widths in (("sparse_queries", (4,)), ("ivf_build", (256,)),
-                          ("sharded_grouped", (256,))):
+    for phase, widths in (("ivf_build", (256,)), ("sharded_grouped", (256,))):
         if not all(phases[phase]["gather_by_row_bytes"].get(w, 0) > 0
                    for w in widths):
             raise AssertionError(f"{phase}: no gathers of {widths}-byte rows")
     main_pm = pm_cases["l2_mask_nvalid"]
+    csr = sp["csr_ip"]
     trav = gather_cases["bf16_store"]
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",
             "gemm_ms", "max_abs_err")
@@ -1962,7 +2106,26 @@ def main() -> int:
          "bound_ms": trav["bound_ms"], "bound_by": trav["bound_by"],
          "library_ms": trav["library_ms"],
          "pct_of_bound": trav["pct_of_bound"],
-         "cases": gather_cases}]}), flush=True)
+         "cases": gather_cases},
+        {"name": "csr_ip", "route": "cuda",
+         "source": "vectordb_tpu_torch/csrc/csr_ip.cu",
+         "binding": "vectordb_tpu_torch/csrc/csr_ip_op.cpp",
+         "replaces": "vectordb_tpu/ops/sparse.py:85",
+         "replaces_kind": "_sparse_ip_kernel, a jitted XLA program (gather, "
+                          "multiply, prefix-sum difference), not a Pallas "
+                          "kernel",
+         "launches": sum(c["csr_ip"] for c in phases.values()),
+         "launches_by_variant": by_variant,
+         "max_abs_err": max(csr["max_abs_err"],
+                            csr["large_scatter"]["max_abs_err"]),
+         "ms": csr["ms"], "plain_ms": csr["plain_ms"],
+         "bound_ms": csr["bound_ms"], "bound_by": csr["bound_by"],
+         "library_ms": csr["library_ms"],
+         "library": "cuSPARSE SpMV (torch.sparse_csr_tensor @ q, int32)",
+         "pct_of_bound": csr["pct_of_bound"],
+         "three_pass_ms": csr["three_pass_ms"],
+         "l2_variant_ms": csr["l2_variant_ms"],
+         "large_scatter": csr["large_scatter"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
-"""The port on a CUDA device: the partial-min and row-gather kernels
-against their plain versions, the flat-serve and graph slices through
-the kernels, the query wires' device round trip against the host's and
-the flat-serve kernel path under the int8 wire, device filter masks
-against the host evaluator, a REST query over a CUDA store, and sparse
-scoring, the IVF KNN and hybrid search on the card against their CPU runs.
+"""The port on a CUDA device: the partial-min, row-gather and CSR
+inner-product kernels against their plain versions, the flat-serve and
+graph slices through the kernels, the query wires' device round trip
+against the host's and the flat-serve kernel path under the int8 wire,
+device filter masks against the host evaluator, a REST query over a CUDA
+store, and sparse scoring, the IVF KNN and hybrid search on the card
+against their CPU runs.
 
 These tests need the card and skip without one. They import neither jax
 nor vectordb_tpu, so they also run where JAX is not installed:
@@ -11,7 +12,9 @@ nor vectordb_tpu, so they also run where JAX is not installed:
 Tolerance (kernel vs plain version): both add exact bf16 x bf16 products
 in f32 in different orders — rtol 1e-5, atol 1e-5 * max(|q|^2 + |x|^2),
 and ids equal except at such near-ties. The row gather copies bytes, so it
-must equal its plain version bit for bit. Device filter masks must equal
+must equal its plain version bit for bit. The CSR inner product adds the
+same f32 products in another order than its plain version: rtol 1e-5 plus
+1e-5 x sum |q_i x_i| of the row. Device filter masks must equal
 the host evaluator's bit for bit (the adversarial table below is also used
 by tests/test_torch_device_filter.py on the CPU).
 """
@@ -657,8 +660,8 @@ def _sparse_rows(rng, n_rows, dim, nnz):
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", METRICS)
 def test_sparse_scores_on_the_card_match_the_cpu_route(cuda_device, metric):
-    """SparseColumnIndex on the card (the gather kernel on the query
-    scatter, a segmented sum) against the same index on the CPU (plain
+    """SparseColumnIndex on the card (the csr_ip kernel, one launch a
+    non-empty query, no gather) against the same index on the CPU (plain
     versions), rtol 1e-5; query terms past every stored index and an empty
     query included."""
     from vectordb_tpu_torch.ops import sparse
@@ -675,11 +678,141 @@ def test_sparse_scores_on_the_card_match_the_cpu_route(cuda_device, metric):
         q = sparse.SparseVector(np.asarray(qi, np.int64),
                                 np.asarray(qv, np.float32))
         gather.reset_launches()
+        sparse.reset_launches()
         got = gpu.device_scores(q, metric)
         assert got.is_cuda and got.shape == (len(col),)
-        assert gather.launches == (1 if len(qi) else 0)
+        assert sparse.launches == (1 if len(qi) else 0)
+        assert gather.launches == 0
         torch.testing.assert_close(got.cpu(), cpu.device_scores(q, metric),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _zipf_csr(dev, n_rows, n_terms, seed):
+    """A CSR column on the card: Zipf(1.5) row lengths up to 3,000, then
+    rows of 0, 1, 2, 3, 1,025 and 5,000 nnz and trailing empty rows, so row
+    offsets fall on every residue mod 4 and nnz is not a multiple of 4;
+    sorted distinct term ids below n_terms, values gamma(1, 1)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(1.5, n_rows), 3000)
+    lengths = np.concatenate([lengths, [0, 1, 2, 3, 1025, 0, 5000, 0, 0]])
+    if lengths.sum() % 4 == 0:
+        lengths[0] += 1
+    idx = np.concatenate([np.sort(rng.choice(n_terms, m, replace=False))
+                          for m in lengths]).astype(np.int32)
+    offs = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offs[1:])
+    val = rng.gamma(1.0, 1.0, len(idx)).astype(np.float32)
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev),
+            torch.from_numpy(offs).to(dev))
+
+
+def _assert_csr_ip_close(idx, val, offs, q):
+    """csr_ip (the kernel) against csr_ip_ref on the same inputs, within
+    rtol 1e-5 plus 1e-5 x sum |q_i x_i| of the row: the two add the same
+    f32 products in different orders."""
+    from vectordb_tpu_torch.ops import sparse
+
+    got = sparse.csr_ip(idx, val, offs, q)
+    want = sparse.csr_ip_ref(idx, val, offs, q)
+    mag = sparse.csr_ip_ref(idx, val.abs(), offs, q.abs())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (offs.numel() - 1,)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * mag).all())
+    empty = offs[1:] == offs[:-1]
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,len_q,n_terms", [
+    ("shared", 20_001, 30_522),   # stored ids past the scatter read its 0
+    ("shared", 58_112, 50_000),   # the largest scatter shared memory holds
+    ("l2", 58_113, 50_000),
+    ("l2", 200_001, 250_000)])
+def test_csr_ip_kernel_matches_plain_version(cuda_device, variant, len_q,
+                                              n_terms):
+    """Both scatter variants on a 50,000-row Zipf column (many passes of
+    the persistent grid), rows of 0 and of more than 1,024 nnz, offsets not
+    multiples of 4, a query scatter of len_q floats with a trailing 0."""
+    from vectordb_tpu_torch.ops import sparse
+
+    idx, val, offs = _zipf_csr(cuda_device, 50_000, n_terms, seed=21)
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    q = torch.rand(len_q, generator=g, device=cuda_device)
+    q[-1] = 0
+    q[torch.rand(len_q, generator=g, device=cuda_device) < 0.5] = 0
+    sparse.reset_launches()
+    _assert_csr_ip_close(idx, val, offs, q)
+    assert sparse.launches == 1
+    assert sparse.launches_by_variant == {variant: 1}
+
+
+@pytest.mark.gpu
+def test_csr_ip_kernel_on_small_and_empty_columns(cuda_device):
+    """A column of one row, of rows without nnz (written as 0, the output
+    comes from torch.empty), of a last vector of 1, 2 or 3 nnz, and of no
+    rows at all (no launch)."""
+    from vectordb_tpu_torch.ops import sparse
+
+    dev = cuda_device
+    q = torch.tensor([0.5, -1.0, 2.0, 0.0], device=dev)
+    for n in (1, 2, 3, 5, 6, 7):
+        idx = torch.arange(n, dtype=torch.int32, device=dev) % 5
+        val = torch.ones(n, device=dev)
+        offs = torch.tensor([0, 0, n // 2, n, n], dtype=torch.int64,
+                            device=dev)
+        _assert_csr_ip_close(idx, val, offs, q)
+        _assert_csr_ip_close(idx, val, offs[[0, -1]].contiguous(), q)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    sparse.reset_launches()
+    out = sparse.csr_ip(none, none.float(), torch.zeros(
+        4, dtype=torch.int64, device=dev), q)
+    assert out.tolist() == [0.0, 0.0, 0.0] and sparse.launches == 1
+    out = sparse.csr_ip(none, none.float(), torch.zeros(
+        1, dtype=torch.int64, device=dev), q)
+    assert out.shape == (0,) and sparse.launches == 1
+
+
+@pytest.mark.gpu
+def test_csr_ip_kernel_rejects_what_it_does_not_take(cuda_device):
+    from vectordb_tpu_torch.ops import sparse
+
+    dev = cuda_device
+    idx = torch.zeros(9, dtype=torch.int32, device=dev)
+    val = torch.ones(9, device=dev)
+    offs = torch.tensor([0, 4, 8], dtype=torch.int64, device=dev)
+    q = torch.ones(5, device=dev)
+    with pytest.raises(TypeError):
+        sparse.csr_ip(idx.long(), val, offs, q)
+    with pytest.raises(TypeError):
+        sparse.csr_ip(idx, val, offs.int(), q)
+    with pytest.raises(ValueError):
+        sparse.csr_ip(idx, val[:8], offs, q)
+    with pytest.raises(ValueError):
+        sparse.csr_ip(idx, val, offs, q.cpu())
+    with pytest.raises(ValueError):
+        sparse.csr_ip(idx, val, offs, torch.ones(10, device=dev)[::2])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sparse.csr_ip(idx[1:], val[1:], offs, q)
+
+
+@pytest.mark.gpu
+def test_csr_ip_raises_when_the_operator_does_not_load(cuda_device,
+                                                       monkeypatch,
+                                                       tmp_path):
+    """No fallback: on a CUDA index a library that does not load raises;
+    the plain version does not run instead."""
+    from vectordb_tpu_torch import _cuda_build
+    from vectordb_tpu_torch.ops import sparse
+
+    bad = tmp_path / "csr_ip_op-000000000000.so"
+    bad.write_bytes(b"not a shared library")
+    monkeypatch.setattr(sparse, "_op", None)
+    monkeypatch.setattr(_cuda_build, "_registered", {})
+    monkeypatch.setattr(_cuda_build, "library_path", lambda name: str(bad))
+    z = torch.zeros(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="did not load"):
+        sparse.csr_ip(z.int(), z, torch.zeros(2, dtype=torch.int64,
+                                               device=cuda_device), z)
 
 
 @pytest.mark.gpu
@@ -714,6 +847,8 @@ def test_ivf_knn_on_the_card_matches_the_cpu_route(cuda_device):
 def test_hybrid_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     """The same table and hybrid queries (rrf and weighted, a filter) on the
     card and on the CPU: the same ids, fused scores within rtol 1e-5."""
+    from vectordb_tpu_torch.ops import sparse
+
     rng = np.random.default_rng(9)
     n = 3000
     x = rng.normal(size=(n, 32)).astype(np.float32)
@@ -743,13 +878,13 @@ def test_hybrid_on_the_card_matches_the_cpu(cuda_device, tmp_path):
             {"ID": i, "D": x[i].tolist(),
              "S": {"indices": rows[i][0].tolist(),
                    "values": rows[i][1].tolist()}} for i in range(n)]) == 0
-        gather.reset_launches()
+        sparse.reset_launches()
         res = [vdb.hybrid_query("t", q, ["ID"], 10, flt, True,
                                 rerank=rerank)[1]
                for q in queries for rerank in ("rrf", "weighted")
                for flt in ("", "ID < 1500")]
-        if device == "cuda":
-            assert gather.launches > 0
+        if device == "cuda":  # the sparse scorer's kernel, once a query
+            assert sparse.launches == len(res)
         out[device] = res
     for g, c in zip(out["cuda"], out["cpu"]):
         assert [r["ID"] for r in g] == [r["ID"] for r in c]

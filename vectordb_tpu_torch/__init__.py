@@ -8,11 +8,13 @@ path running on an NVIDIA GPU: the flat-serve scan, the graph index
 (exact-KNN build, or the IVF-partitioned KNN from IvfKnnThreshold rows up;
 beam traversal, search tuning), filter masks evaluated on the device
 (expr/device.py), and sparse and hybrid (dense + sparse) search with every
-row of a sparse column scored on the device (ops/sparse.py). Its two
-hand-written CUDA kernels are the partial-min scan (csrc/partial_min.cu)
-and the row gather of traversal, of the IVF build and of sparse scoring
-(csrc/gather_rows.cu, called through the PyTorch operator
-torch.ops.vdb.gather_rows of csrc/gather_rows_op.cpp). With ShardCount >= 2
+row of a sparse column scored on the device (ops/sparse.py). Its three
+hand-written CUDA kernels are the partial-min scan (csrc/partial_min.cu),
+the row gather of traversal and of the IVF build (csrc/gather_rows.cu,
+called through the PyTorch operator torch.ops.vdb.gather_rows of
+csrc/gather_rows_op.cpp) and the sparse scorer's one-pass CSR inner
+product (csrc/csr_ip.cu, through torch.ops.vdb.csr_ip of
+csrc/csr_ip_op.cpp). With ShardCount >= 2
 a table's dense fields are sharded over a list of devices (parallel/: one
 process drives every shard; `parallel.set_engine_mesh` can place several
 shards on one card). QueryDtype selects the grouped paths' query wire

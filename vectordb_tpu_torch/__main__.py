@@ -15,7 +15,7 @@ Mirrors the reference CLI (reference engine cmd/server/main.cpp:33-94):
 
 HTTP requests are served from worker threads; the main thread runs the
 device executor loop, so device work is serialized like the reference's
-executor pool. On a CUDA device both kernels are built before the server
+executor pool. On a CUDA device every kernel is built before the server
 listens, so no request pays for nvcc. SIGINT and SIGTERM stop the executor,
 the HTTP server and the rebuild thread, and the process exits 0.
 

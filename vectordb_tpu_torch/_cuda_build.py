@@ -6,8 +6,9 @@ flags, so an edited source never meets a stale binary. Binaries are never
 committed. Two kinds:
 - a plain-C library loaded with ctypes (partial_min): no PyTorch headers,
   so its cold build takes seconds;
-- a PyTorch operator library (gather_rows_op: the gather kernel and the
-  `vdb::gather_rows` operator), compiled against the installed PyTorch's
+- PyTorch operator libraries (gather_rows_op: the gather kernel and the
+  `vdb::gather_rows` operator; csr_ip_op: the sparse scorer's kernel and
+  the `vdb::csr_ip` operator), compiled against the installed PyTorch's
   headers and libraries, which takes tens of seconds, and registered with
   torch.ops.load_library. Its key also holds the PyTorch version, so a new
   PyTorch never meets a library built against another one.
@@ -36,7 +37,8 @@ TORCH_LIBS = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 # PyTorch operator libraries (torch.ops).
 KERNELS: Dict[str, List[str]] = {"partial_min": ["partial_min.cu"]}
 OPERATORS: Dict[str, List[str]] = {
-    "gather_rows_op": ["gather_rows.cu", "gather_rows_op.cpp"]}
+    "gather_rows_op": ["gather_rows.cu", "gather_rows_op.cpp"],
+    "csr_ip_op": ["csr_ip.cu", "csr_ip_op.cpp"]}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

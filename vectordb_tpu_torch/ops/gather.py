@@ -76,7 +76,9 @@ MAIN_PATH_SHAPES = (
     ("int8_build", torch.int8, (1_048_576, 128), 1_032_192),
     # A sparse query's f32 scatter over BERT's 30,522-term vocabulary plus
     # its trailing zero, read at every stored index of a 1M-row column of
-    # about 120 terms a row (ops/sparse.py, SparseColumnIndex).
+    # about 120 terms a row. The sparse scorer no longer takes this route
+    # (ops/sparse.csr_ip reads the scatter in one pass with the products
+    # and row sums); kept as the yardstick of the route it replaced.
     ("f32_query_scatter", torch.float32, (30_523,), 120_000_000),
     # Candidate rows of one group of the IVF KNN loop over a 3M-row store
     # (capacity 4,194,304): 32 tiles x 8 probed tiles x 1,024 rows

@@ -9,20 +9,28 @@ dense (squared L2; 1 - ip with ingest-time normalization; -ip).
 Host numpy scores individual pairs (the exact re-rank of a sparse query's
 candidates); SparseColumnIndex scores a query against every row of a
 column on the engine's device: the CSR arrays are uploaded once per
-snapshot, each query uploads its dense scatter, the row gather kernel
-(ops/gather) reads the scatter at every stored index and a segmented sum
-adds each row's products.
+snapshot, each query uploads its dense scatter, and `csr_ip` reads the
+scatter at every stored index and sums each row's products in one pass:
+on a CUDA tensor the hand-written kernel csrc/csr_ip.cu through the
+PyTorch operator `torch.ops.vdb.csr_ip` (csrc/csr_ip_op.cpp), on a CPU
+tensor `csr_ip_ref`, its plain version (clamp, gather, multiply,
+torch.segment_reduce).
 
-Divergence from the JAX package, on purpose: JAX sums a row's products as
-the difference of one f32 prefix sum over the whole column at the row's
-boundaries (vectordb_tpu/ops/sparse.py:85-109). That sum drifts with the
-column's nnz (a max absolute error of 0.63 against a float64 row sum at
-17.5M nnz, where the largest inner product was 80.4), which the exact
-re-rank of k + 32 candidates hides only while the drift stays below the
-gaps between scores. The port sums each row's own products
-(torch.segment_reduce over the row offsets), so the error of a row is that
-of its ~nnz-per-row f32 additions. Not ported, as TPU workarounds: the
-power-of-two bucket padding of the CSR arrays and of the query scatter.
+Divergences from the JAX package, on purpose:
+- JAX sums a row's products as the difference of one f32 prefix sum over
+  the whole column at the row's boundaries
+  (vectordb_tpu/ops/sparse.py:85-109). That sum drifts with the column's
+  nnz (a max absolute error of 0.63 against a float64 row sum at 17.5M
+  nnz, where the largest inner product was 80.4), which the exact re-rank
+  of k + 32 candidates hides only while the drift stays below the gaps
+  between scores. The port sums each row's own products, so the error of
+  a row is that of its ~nnz-per-row f32 additions.
+- The device row offsets are int64, where JAX casts them to int32
+  (vectordb_tpu/ops/sparse.py:168), so a column of 2^31 nnz or more (17 GB
+  of CSR, which fits on the card) would wrap silently; the kernel reads
+  int64 offsets, and the limit is gone.
+Not ported, as TPU workarounds: the power-of-two bucket padding of the CSR
+arrays and of the query scatter.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import torch
 
 from .._device import default_device
 from ..schema import MetricType
-from .gather import gather_rows
+from .gather import gather_rows_ref
 
 
 @dataclass
@@ -118,16 +126,127 @@ def _row_sums(x: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     return out
 
 
+# Kernel launches since the last reset (CPU calls of the plain version are
+# not counted), in all and by variant ("shared": the scatter in shared
+# memory, "l2": read from global memory): a run reads them to show the
+# main path went through the kernel.
+launches = 0
+launches_by_variant: Dict[str, int] = {}
+
+# The largest scatter (floats) that the kernel keeps in shared memory:
+# Hopper's 232,448 bytes of dynamic shared memory a block (the sm_90a build
+# runs on nothing else). BERT's 30,522 terms plus the trailing zero fit.
+MAX_SHARED_SCATTER = 232_448 // 4
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    launches_by_variant.clear()
+
+
+def scatter_variant(len_q: int) -> str:
+    """The kernel variant for a scatter of len_q floats: "shared" up to
+    MAX_SHARED_SCATTER, else "l2"."""
+    return "shared" if len_q <= MAX_SHARED_SCATTER else "l2"
+
+
+def csr_ip_cost(nnz: int, n_rows: int, len_q: int) -> int:
+    """Bytes one scoring must move, each counted once: the int32 index and
+    f32 value of every nnz, the n_rows + 1 int64 offsets, the scatter, the
+    n_rows f32 outputs. Its 2 f32 operations a nnz on the CUDA cores take
+    about 1% of the bytes' time, so the bound is these bytes at the HBM rate
+    (partial_min.bound_ms(0, bytes))."""
+    return 8 * nnz + 8 * (n_rows + 1) + 4 * len_q + 4 * n_rows
+
+
+def _check(idx: torch.Tensor, val: torch.Tensor, offs: torch.Tensor,
+           q: torch.Tensor) -> None:
+    """The operator's checks, in Python (the kernel also needs idx and val
+    16-byte aligned, which only the operator checks)."""
+    for name, t, dtype in (("idx", idx, torch.int32),
+                           ("val", val, torch.float32),
+                           ("offs", offs, torch.int64),
+                           ("q", q, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"csr_ip: {name} must be {dtype}, got {t.dtype}")
+    if not all(t.dim() == 1 for t in (idx, val, offs, q)):
+        raise ValueError("csr_ip: idx, val, offs and q must be 1-D")
+    if idx.numel() != val.numel():
+        raise ValueError(f"csr_ip: {idx.numel()} indices but {val.numel()} "
+                         "values")
+    if offs.numel() < 1 or q.numel() < 1:
+        raise ValueError("csr_ip: offs and q must not be empty")
+    if not all(t.is_contiguous() for t in (idx, val, offs, q)):
+        raise ValueError("csr_ip: idx, val, offs and q must be contiguous")
+    if not all(t.device == idx.device for t in (val, offs, q)):
+        raise ValueError(f"csr_ip: idx on {idx.device}, val on {val.device}, "
+                         f"offs on {offs.device}, q on {q.device}")
+
+
+_op = None
+
+
+def _operator():
+    """torch.ops.vdb.csr_ip, its library built and registered on first use
+    (_cuda_build raises, naming nvcc's output, if it fails)."""
+    global _op
+    if _op is None:
+        from .. import _cuda_build
+
+        _cuda_build.load_operator("csr_ip_op")
+        _op = torch.ops.vdb.csr_ip.default
+    return _op
+
+
+def csr_ip(idx: torch.Tensor, val: torch.Tensor, offs: torch.Tensor,
+           q: torch.Tensor) -> torch.Tensor:
+    """Inner products of the query scatter q with every row of the CSR
+    column (idx int32 [nnz], val f32 [nnz], offs int64 [n_rows + 1],
+    non-decreasing from 0 to nnz): out[r] = sum over j in [offs[r],
+    offs[r + 1]) of q[clamp(idx[j], 0, len(q) - 1)] * val[j], each row summed
+    on its own in f32, 0 for an empty row; [n_rows] f32. On CUDA tensors
+    the kernel (the scatter in shared memory up to MAX_SHARED_SCATTER
+    floats, else read from global memory), on CPU tensors csr_ip_ref. Both
+    raise TypeError for a wrong dtype and ValueError for the other
+    arguments the kernel does not take."""
+    global launches
+    if idx.is_cuda:
+        variant = scatter_variant(q.numel())
+        out = (_op if _op is not None else _operator())(
+            idx, val, offs, q, variant == "shared")
+        if out.numel():
+            launches += 1
+            launches_by_variant[variant] = (
+                launches_by_variant.get(variant, 0) + 1)
+        return out
+    if idx.device.type != "cpu":
+        raise ValueError(f"csr_ip: idx on {idx.device}; the kernel takes "
+                         "CUDA tensors, the plain version CPU ones")
+    _check(idx, val, offs, q)
+    return csr_ip_ref(idx, val, offs, q)
+
+
+def csr_ip_ref(idx: torch.Tensor, val: torch.Tensor, offs: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of csr_ip: the scatter gathered at the clamped
+    indices (gather_rows_ref), multiplied by the values, summed per row by
+    torch.segment_reduce over the offsets."""
+    contrib = gather_rows_ref(q, idx) * val
+    return torch.segment_reduce(contrib, "sum", offsets=offs)
+
+
 class SparseColumnIndex:
     """CSR snapshot of a sparse column for vectorized batch scoring.
 
     Concatenates all stored vectors into (indices, values, row offsets) so a
-    query scores EVERY row with one gather + one segmented reduction —
-    replacing the per-row merge loop of the reference's sparse path
-    (vector.cpp:7-25). The host arrays are int32 indices, f32 values and
-    int64 offsets; the device copies (int32 indices and offsets, f32 values
-    and squared norms) are uploaded to the engine's device on the first
-    device scoring and kept with the snapshot.
+    query scores EVERY row in one pass (csr_ip) — replacing the per-row
+    merge loop of the reference's sparse path (vector.cpp:7-25). The host
+    arrays are int32 indices, f32 values and int64 offsets; the device
+    copies (int32 indices, f32 values, int64 offsets, f32 squared norms) are
+    uploaded to the engine's device on the first device scoring and kept
+    with the snapshot. The offsets stay int64 on the device, so no count of
+    nnz wraps.
     """
 
     def __init__(self, column: Sequence[Optional[SparseVector]], n_rows: int):
@@ -152,33 +271,31 @@ class SparseColumnIndex:
         self._dev = None
 
     def _device_arrays(self):
-        """(indices int32, values f32, offsets int32, norms_sq f32) on the
+        """(indices int32, values f32, offsets int64, norms_sq f32) on the
         index's device, uploaded once."""
         if self._dev is None:
             dev = self.device
             self._dev = (
                 torch.from_numpy(self.indices).to(dev),
                 torch.from_numpy(self.values).to(dev),
-                torch.from_numpy(self.offsets.astype(np.int32)).to(dev),
+                torch.from_numpy(self.offsets).to(dev),
                 torch.from_numpy(self.norms_sq).to(dev))
         return self._dev
 
     def device_scores(self, query: SparseVector,
                       metric: MetricType) -> torch.Tensor:
         """Distances of the query to every row, [n_rows] f32 on the index's
-        device. The query's dense scatter gets a trailing zero, and the
-        row gather's clamp to [0, len - 1] lands every stored index past
-        the query's largest on it (JAX's jnp.minimum(idx, len) on the
-        zero-padded scatter); the products are summed per row."""
+        device. The query's dense scatter gets a trailing zero, and
+        csr_ip's clamp to [0, len - 1] lands every stored index past the
+        query's largest on it (JAX's jnp.minimum(idx, len) on the
+        zero-padded scatter). An empty query or column launches nothing."""
         idx, val, offs, norms = self._device_arrays()
         if len(query.indices) and len(self.indices):
             qmax = int(query.indices.max()) + 1
             qdense = np.zeros(qmax + 1, dtype=np.float32)
             qdense[query.indices] = query.values
-            contrib = gather_rows(torch.from_numpy(qdense).to(self.device),
-                                  idx)
-            contrib.mul_(val)
-            ip = torch.segment_reduce(contrib, "sum", offsets=offs)
+            ip = csr_ip(idx, val, offs,
+                        torch.from_numpy(qdense).to(self.device))
         else:
             ip = torch.zeros(self.n_rows, dtype=torch.float32,
                              device=self.device)
