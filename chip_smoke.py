@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA libraries from vectordb_tpu_torch/csrc (the partial-min
-kernel for ctypes, the gather kernel and the sparse scorer's CSR kernel
-each with its PyTorch operator; one nvcc each, in parallel) and holds each
-kernel against its plain PyTorch version on the card: the partial-min scan
+kernel for ctypes, the gather kernel, the sparse scorer's CSR kernel and
+the traversal's beam-iteration kernel each with its PyTorch operator; one
+nvcc each, in parallel) and holds each kernel against its plain PyTorch
+version on the card: the partial-min scan
 at the flat-serve shape (B = 8192
 queries, N = 262,144 rows, D = 128, bf16) and at the exact-KNN shape
 (B = 1,024, N = 1,048,576, exclude_self, n_valid); the row gather, bit for
@@ -15,7 +16,14 @@ adjacency rows, f32 re-rank rows, f32 scalars, the build's int8 store
 rows, a sparse query's f32 scatter, the IVF build's bf16 candidate rows);
 and the query wires' device round trip (ops/qwire.apply_wire, bf16 and
 block int8) bit for bit against the host's on 8,192 x 128 queries, with the
-prologue's time at a super-chunk of 8,192 x 128.
+prologue's time at a super-chunk of 8,192 x 128; and the beam iteration
+(ops/beam.beam_iter) bit for bit against beam_iteration_ref over a walk of
+16 iterations at the 1M graph's shape (1,000,000 integer-valued bf16 rows
+of 128, R = 48, L = 64), split (cp 96) and fused, for 2,048 queries (one
+launch an iteration) and for one (one launch), with the walk's time beside
+its bound (the bytes its data needs, beam.beam_iter_cost's terms); after
+the graph phase, the same at the walks that phase gave the kernel (its
+tuned beam: the grouped walk fused and split, the single query's).
 Each case prints its time beside its
 bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
@@ -35,8 +43,11 @@ read just after (gathers also by row width):
     partial-min kernel, pruning, auto-tune), single queries through
     vdb.query, 16,384 grouped queries with FusedTraversal auto and off and
     with the device filter `cat < 5` (traversal gathers through the
-    row-gather kernel), then one grouped program and 20 single queries
-    under torch.profiler (device time, the gather's share, idle share);
+    row-gather kernel, every traversal iteration through the beam-iteration
+    kernel), then one grouped program and 20 single queries under
+    torch.profiler (device time, kernels launched and a query, the
+    gather's and the beam iteration's shares, idle share, the top kernels
+    and aten ops with their input shapes);
     then the query wires: 16,384 grouped queries under QueryDtype f32, bf16
     and int8, and under auto after a fresh tune_search_ef (which wire and
     rung it picks);
@@ -104,7 +115,8 @@ import torch
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build, rest
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import gather, ivf, partial_min, qwire, sparse
+from vectordb_tpu_torch.ops import (beam, gather, ivf, partial_min, qwire,
+                                    sparse)
 from vectordb_tpu_torch.ops.sparse import SparseVector
 from vectordb_tpu_torch.schema import MetricType
 
@@ -112,6 +124,9 @@ KERNEL_B, KERNEL_N, KERNEL_D = 8192, 262144, 128
 KNN_B, KNN_N, KNN_N_VALID, KNN_Q_BASE = 1024, 1_048_576, 1_000_000, 4096
 SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH = 250_000, 128, 16_384, 2048
 GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH = 1_000_000, 128, 16_384, 2048
+# The traversal kernel's check: rows of the graph slice's table, beam
+# width and iterations of the walk held bit for bit to the plain version.
+BEAM_N, BEAM_L, BEAM_ITERS = GRAPH_N, 64, 16
 RECALL_FLOOR = 0.99
 # Filtered queries that the graph serves with a widened beam (the JAX
 # package's selectivity rule, not retuned) are held to this floor.
@@ -214,6 +229,7 @@ def reset_counts() -> None:
     partial_min.reset_launches()
     gather.reset_launches()
     sparse.reset_launches()
+    beam.reset_launches()
 
 
 def read_counts() -> dict:
@@ -221,7 +237,8 @@ def read_counts() -> dict:
     return {"partial_min": partial_min.launches, "gather": gather.launches,
             "gather_by_row_bytes": dict(gather.launches_by_row_bytes),
             "csr_ip": sparse.launches,
-            "csr_ip_by_variant": dict(sparse.launches_by_variant)}
+            "csr_ip_by_variant": dict(sparse.launches_by_variant),
+            "beam_iter": beam.launches}
 
 
 def check_wires(dev: torch.device) -> dict:
@@ -299,40 +316,68 @@ def wire_pass(table, wire: str, queries, valid, batch: int, x, want,
     return r
 
 
-def device_profile(fn) -> dict:
-    """fn() under torch.profiler: its wall, the device time of every kernel
-    and copy, the gather kernel's and the csr_ip kernel's parts of it, and
-    the device's idle share of the wall (the profiler's own host cost counts
-    as idle). The share is not clamped: kernels that overlapped on several
-    streams would count twice and show as a negative share."""
+PROFILE_TOP = 12
+
+
+def device_profile(fn, n_queries: int) -> dict:
+    """fn() (n_queries queries) under torch.profiler: its wall, the device
+    time of every kernel and copy, the kernels and copies launched (also a
+    query), the gather, csr_ip and beam_iter kernels' parts of the device
+    time, the device's idle share of the wall (the profiler's own host
+    cost, shape recording included, counts as idle), and the PROFILE_TOP
+    kernels and aten ops (with their input shapes) by device time. The
+    share is not clamped: kernels that overlapped on several streams would
+    count twice and show as a negative share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def dev_us(ev):
+        us = getattr(ev, "self_device_time_total", None)
+        return ev.self_cuda_time_total if us is None else us
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = gather_us = csr_us = 0.0
+    device_us = gather_us = csr_us = beam_us = 0.0
+    kernels = copies = 0
+    top_kernels, top_ops = [], []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
+        us = dev_us(ev)
         device_us += us
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copies += ev.count
+        else:
+            kernels += ev.count
+        top_kernels.append((us, ev.count, ev.key[:100]))
         if "gather_rows" in ev.key:
             gather_us += us
         if "csr_ip_kernel" in ev.key:
             csr_us += us
+        if "beam_iter_kernel" in ev.key:
+            beam_us += us
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.device_type != DeviceType.CUDA and dev_us(ev) > 0:
+            top_ops.append((dev_us(ev), ev.count,
+                            f"{ev.key} {str(ev.input_shapes)[:80]}"))
+    share = lambda us: us / device_us if device_us else 0.0
+    top = lambda rows: [
+        {"name": name, "ms": us / 1e3, "count": count, "share": share(us)}
+        for us, count, name in sorted(rows, reverse=True)[:PROFILE_TOP]]
     return {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
-            "gather_ms": gather_us / 1e3,
-            "gather_share": gather_us / device_us if device_us else 0.0,
-            "csr_ip_ms": csr_us / 1e3,
-            "csr_ip_share": csr_us / device_us if device_us else 0.0,
-            "idle_share": 1.0 - device_us / 1e3 / wall_ms}
+            "kernels": kernels, "copies": copies,
+            "kernels_per_query": kernels / n_queries,
+            "copies_per_query": copies / n_queries,
+            "gather_ms": gather_us / 1e3, "gather_share": share(gather_us),
+            "csr_ip_ms": csr_us / 1e3, "csr_ip_share": share(csr_us),
+            "beam_iter_ms": beam_us / 1e3, "beam_iter_share": share(beam_us),
+            "idle_share": 1.0 - device_us / 1e3 / wall_ms,
+            "top_kernels": top(top_kernels), "top_ops": top(top_ops)}
 
 
 def make_clustered(n: int, dim: int, n_queries: int, seed: int = 0,
@@ -502,6 +547,217 @@ def check_gather(dev: torch.device):
         del tab, ids, ids_c, calls
         torch.cuda.empty_cache()
     return out
+
+
+# The walk that check_beam holds to the plain version first: L 64 (a
+# widened beam), 16 iterations, tw = L, split cp 96 or fused, 8 seeds.
+BEAM_WALK = {"beam_width": BEAM_L, "max_iters": BEAM_ITERS, "term_width": 0,
+             "compact": 96, "expand": 4, "degree": 48, "seeds": 8}
+
+
+def beam_case(dev: torch.device, b: int, fused: bool, seed: int,
+              walk: dict = BEAM_WALK) -> dict:
+    """beam.traverse's arguments for b queries over BEAM_N rows of 128,
+    with walk's beam width L, max_iters, term_width, compact (split path;
+    ignored when fused), expand M and degree R: integer-valued bf16 rows
+    and queries in [-3, 3] (every f32 sum of a score is exact in any
+    order), a random graph with 10% padding edges and a fifth of the rows
+    repeating an edge, each beam seeded with walk's `seeds` random rows at
+    their exact distances, ascending, then -1 / inf. The fused table holds
+    the rows' values as int8, scale 0.375."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, d, r, L = BEAM_N, 128, walk["degree"], walk["beam_width"]
+    n_seed, m, iters = walk["seeds"], walk["expand"], walk["max_iters"]
+    x = torch.randint(-3, 4, (n, d), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randint(-3, 4, (b, d), generator=g, device=dev).float()
+    adj = torch.randint(0, n, (n, r), generator=g, device=dev,
+                        dtype=torch.int32)
+    adj[torch.rand((n, r), generator=g, device=dev) < 0.1] = -1
+    rep = torch.rand(n, generator=g, device=dev) < 0.2
+    adj[rep, 1] = adj[rep, 0]
+    seeds = torch.randint(0, n, (b, n_seed), generator=g, device=dev,
+                          dtype=torch.int32)
+    sx = x[seeds.long()].float()
+    sd = ((q * q).sum(1)[:, None] - 2 * (sx @ q[:, :, None])[:, :, 0]
+          + (sx * sx).sum(2))
+    sd, order = torch.sort(sd, dim=1, stable=True)
+    ids = torch.full((b, L), -1, dtype=torch.int32, device=dev)
+    ids[:, :n_seed] = torch.gather(seeds, 1, order)
+    dist = torch.full((b, L), float("inf"), device=dev)
+    dist[:, :n_seed] = sd
+    kw = dict(q=q.to(torch.bfloat16), q_norms=(q * q).sum(1), table=x,
+              adjacency=adj, fused=None, scale=None, beam_ids=ids,
+              beam_exp=torch.zeros((b, L), dtype=torch.bool, device=dev),
+              beam_d=dist, visited=torch.full((b, m * iters), -1,
+                                              dtype=torch.int32, device=dev),
+              metric=int(MetricType.EUCLIDEAN), expand=m, max_iters=iters,
+              term_width=walk["term_width"],
+              compact=0 if fused else walk["compact"])
+    if fused:
+        f = torch.empty((n, r * d), dtype=torch.int8, device=dev)
+        for s0 in range(0, n, 65536):
+            rows = adj[s0:s0 + 65536].clamp(min=0).long()
+            f[s0:s0 + 65536] = x[rows].reshape(len(rows), -1).to(torch.int8)
+        kw.update(fused=f, scale=0.375)
+    return kw
+
+
+def walk_bytes(kw: dict) -> int:
+    """Bytes the walk from kw's state must move, counted from its data:
+    it steps the plain version one iteration at a time and, for each that
+    ran (some query picked a valid entry), adds the valid picks' adjacency
+    rows and the rows of the candidates scored (the survivors: candidates
+    not padded, not in the beam, not repeated, not visited; at most cp on
+    the split path), each once (beam.beam_iter_cost), and the beam and
+    visited: for a batch (a launch an iteration) the beam read and written
+    and the visited ids read and written every iteration; for one query
+    (one launch) the beam read and written once and each visited id
+    written once."""
+    st = {k: v.clone() if isinstance(v, torch.Tensor) else v
+          for k, v in kw.items()}
+    b, L = st["beam_ids"].shape
+    M, R = st["expand"], st["adjacency"].shape[1]
+    C, d = M * R, st["q"].shape[1]
+    cp = st["compact"] if 0 < st["compact"] < C else C
+    fused = st["fused"] is not None
+    row = d if fused else d * st["table"].element_size()
+    state = (st["beam_ids"], st["beam_exp"], st["beam_d"], st["visited"])
+    total = 0
+    for it in range(st["max_iters"]):
+        ids, exp, bd, vis = state
+        avail = ~exp & torch.isfinite(bd)
+        pick = beam._first_m(avail, M)
+        valid = torch.gather(avail, 1, pick)
+        if not bool(valid.any()):
+            break
+        pid = torch.gather(ids, 1, pick)
+        cand = beam.gather_rows(st["adjacency"], pid).reshape(b, C)
+        cand = torch.where(valid.repeat_interleave(R, dim=1), cand, -1)
+        vis_now = torch.cat([vis[:, :it * M], torch.where(valid, pid, -1)],
+                            dim=1)
+        first = torch.argmax((cand[:, :, None] == cand[:, None, :])
+                             .to(torch.uint8), dim=2)
+        good = ((cand >= 0) & (first == torch.arange(C, device=cand.device))
+                & ~(cand[:, :, None] == ids[:, None, :]).any(2)
+                & ~(cand[:, :, None] == vis_now[:, None, :]).any(2))
+        scored = good.sum(1)
+        if not fused and it > 0:  # iteration 0 runs uncompacted
+            scored = scored.clamp(max=cp)
+        total += beam.beam_iter_cost(0 if b == 1 else b, L,
+                                     b * (M if b == 1 else it * M + M),
+                                     int(valid.sum()), R, int(scored.sum()),
+                                     row)
+        state = beam._iteration(st["q"], st["q_norms"], st["table"],
+                                st["adjacency"], st["fused"], st["scale"],
+                                state, M, st["metric"], it,
+                                0 if it == 0 else cp)
+    if b == 1:  # one launch: the beam once
+        total += beam.beam_iter_cost(1, L, 0, 0, R, 0, row)
+    return total
+
+
+def check_beam(dev: torch.device, walks=None, tag: str = "") -> dict:
+    """beam_iter (the kernel) against beam_iteration_ref on the card, bit
+    for bit, over walks on BEAM_N rows (beam_case): by default BEAM_WALK
+    for a batch of GRAPH_BATCH queries and for one query, split and fused;
+    else each (b, fused, walk) of `walks` (a main path's walks, as
+    record_walks saw them); the state after the walk equal in every bit.
+    Times the walk (one launch an iteration for a batch, one launch for a
+    single query) in turns with the plain version's, each from its own copy
+    of the start state; bound from walk_bytes at the HBM rate (the f32 FMAs
+    of the scores, 4 a candidate element, are below 3.6 per byte). No
+    PyTorch call computes a traversal: no library time."""
+    if walks is None:
+        walks = [(b, fused, BEAM_WALK) for b, fused in (
+            (GRAPH_BATCH, False), (GRAPH_BATCH, True), (1, False),
+            (1, True))]
+    out = {}
+    for b, fused, walk in walks:
+        name = f"{tag}{'fused' if fused else 'split'}_b{b}"
+        kw = beam_case(dev, b, fused, seed=7 + b + fused, walk=walk)
+        state = ("beam_ids", "beam_exp", "beam_d", "visited")
+        runs = {}
+        for how, fn in (("kernel", beam.traverse),
+                        ("plain", _plain_traverse)):
+            one = {k: kw[k].clone() if k in state else v
+                   for k, v in kw.items()}
+            fn(**one)
+            runs[how] = one
+        torch.cuda.synchronize()
+        for k in state:
+            a, p = runs["kernel"][k], runs["plain"][k]
+            if a.dtype == torch.float32:
+                a, p = a.view(torch.int32), p.view(torch.int32)
+            if not torch.equal(a, p):
+                raise AssertionError(f"beam_iter {name}: {k} differs from "
+                                     "the plain version")
+        err = float((runs["kernel"]["beam_d"] - runs["plain"]["beam_d"])
+                    .nan_to_num(posinf=0.0).abs().max())
+        nbytes = walk_bytes(kw)
+        inner = {"ms": 10, "plain_ms": 2}
+        copies = {how: [{k: kw[k].clone() if k in state else v
+                         for k, v in kw.items()}
+                        for _ in range(7 * inner[how])]
+                  for how in inner}
+
+        fns = {"ms": beam.traverse, "plain_ms": _plain_traverse}
+        got = {how: [] for how in inner}
+        for _ in range(7):  # in turns, each walk from its own copy
+            for how, pool in copies.items():
+                got[how].append(stream_ms(lambda: fns[how](**pool.pop()),
+                                          inner[how]))
+        t = {how: statistics.median(v) for how, v in got.items()}
+        bound, bound_by = partial_min.bound_ms(0, nbytes)
+        out[name] = {**t, "bound_ms": bound, "bound_by": bound_by,
+                     "pct_of_bound": 100.0 * bound / t["ms"],
+                     "max_abs_err": err, "bitwise_equal": True,
+                     "queries": b, **walk, "bytes": nbytes,
+                     "walked": int((runs["kernel"]["visited"] >= 0).sum()),
+                     "library_ms": None}
+        log(f"kernel beam_iter {name}: " + json.dumps(out[name]))
+        del kw, runs, copies
+        torch.cuda.empty_cache()
+    return out
+
+
+class record_walks:
+    """While open, the shape of every traversal walk (beam.traverse) of the
+    main path: (queries, fused, walk as BEAM_WALK's keys), each once."""
+
+    def __enter__(self):
+        self.walks = []
+        real = self._real = beam.traverse
+
+        def traverse(q, q_norms, table, adjacency, fused, scale, beam_ids,
+                     beam_exp, beam_d, visited, metric, expand, max_iters,
+                     term_width=0, compact=0):
+            b, L = beam_ids.shape
+            walk = {"beam_width": L, "max_iters": max_iters,
+                    "term_width": term_width, "compact": compact,
+                    "expand": expand, "degree": adjacency.shape[1],
+                    "seeds": int(torch.isfinite(beam_d[0]).sum())}
+            if (b, fused is not None, walk) not in self.walks:
+                self.walks.append((b, fused is not None, walk))
+            real(q, q_norms, table, adjacency, fused, scale, beam_ids,
+                 beam_exp, beam_d, visited, metric, expand, max_iters,
+                 term_width, compact)
+
+        beam.traverse = traverse
+        return self
+
+    def __exit__(self, *exc):
+        beam.traverse = self._real
+
+
+def _plain_traverse(**kw) -> None:
+    """beam.traverse with beam_iteration_ref (same arguments) in place of
+    the kernel."""
+    real = beam.beam_iter
+    beam.beam_iter = beam.beam_iteration_ref
+    try:
+        beam.traverse(**kw)
+    finally:
+        beam.beam_iter = real
 
 
 def oracle_top10(x: np.ndarray, q: np.ndarray, k: int = 10) -> np.ndarray:
@@ -747,9 +1003,12 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         probe = [42, 7, n // 2, n - 1]
         want = oracle_top10_gpu(x_dev, x, x[probe])
         reset_counts()
+        with record_walks() as rec:
+            single_hits = [vdb.query("docs", "Emb", x[row].tolist(), ["ID"],
+                                     10, "", True) for row in probe]
+        out["walks"] = rec.walks[:1]
         for i, row in enumerate(probe):
-            code, hits = vdb.query("docs", "Emb", x[row].tolist(), ["ID"],
-                                   10, "", True)
+            code, hits = single_hits[i]
             got = [h["ID"] for h in hits]
             if code != 0 or got[0] != row or \
                     len(set(got) & set(want[i].tolist())) < 9:
@@ -786,8 +1045,14 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         out["grouped"] = {}
         for mode in ("auto", "off"):
             assert vdb.update_config({"FusedTraversal": mode}) == 0
-            table.grouped_dense_search("Emb", queries[:batch * 4 + 1], valid,
-                                       MetricType.EUCLIDEAN, 10, batch=batch)
+            with record_walks() as rec:  # the warm-up's walks
+                table.grouped_dense_search("Emb", queries[:batch * 4 + 1],
+                                           valid, MetricType.EUCLIDEAN, 10,
+                                           batch=batch)
+            widest = max(w[0] for w in rec.walks)
+            out["walks"] += [w for w in rec.walks if w[0] == widest]
+            if mode == "auto":
+                out["walk_auto"] = out["walks"][-1]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
@@ -832,10 +1097,10 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         out["profile"] = {
             "grouped": device_profile(lambda: table.grouped_dense_search(
                 "Emb", queries[:batch * 4], valid, MetricType.EUCLIDEAN, 10,
-                batch=batch)),
+                batch=batch), batch * 4),
             "single": device_profile(lambda: [
                 vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10, "",
-                          True) for i in range(20)])}
+                          True) for i in range(20)], 20)}
         log(f"graph profile: {json.dumps(out['profile'])}")
 
         # Query wires: each forced, then "auto" after a fresh tuning
@@ -1502,7 +1767,7 @@ def run_sparse(dev: torch.device) -> dict:
         out.update(times)
         out["profile"] = device_profile(lambda: [
             vdb.query("docs", "terms", q, ["ID"], 10, "", True)
-            for q in qs[:20]])
+            for q in qs[:20]], 20)
         out["profile"]["device_ms_per_query"] = \
             out["profile"]["device_ms"] / 20
         scorer = ("max_abs_err_ip", "max_abs_err_ip_prefix_difference",
@@ -1918,10 +2183,11 @@ def run_sharded(dev: torch.device) -> dict:
             out["profile"] = {
                 "grouped": device_profile(lambda: table.grouped_dense_search(
                     "Emb", queries[:GRAPH_BATCH * 4], valid,
-                    MetricType.EUCLIDEAN, 10, batch=GRAPH_BATCH)),
+                    MetricType.EUCLIDEAN, 10, batch=GRAPH_BATCH),
+                    GRAPH_BATCH * 4),
                 "single": device_profile(lambda: [
                     vdb.query("docs", "Emb", queries[i].tolist(), ["ID"], 10,
-                              "", True) for i in range(20)])}
+                              "", True) for i in range(20)], 20)}
             log(f"sharded profile: {json.dumps(out['profile'])}")
             out["int8"] = wire_pass(table, "int8", queries, valid,
                                     GRAPH_BATCH, x, want, "gather")
@@ -2018,10 +2284,14 @@ def main() -> int:
     knn = check_knn_kernel(dev)
     gather_cases = check_gather(dev)
     wires = check_wires(dev)
+    beam_cases = check_beam(dev)
     sl = run_slice(dev, SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH)
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
     log(f"graph: {json.dumps(gr)}")
+    # The kernel again at the walks the 1M graph's main path gave it (its
+    # tuned beam), each held to the plain version and timed.
+    beam_cases.update(check_beam(dev, gr["walks"], tag="main_"))
     t0 = time.perf_counter()
     sp = run_sparse(dev)
     sp["phase_s"] = time.perf_counter() - t0
@@ -2078,9 +2348,16 @@ def main() -> int:
         if not all(phases[phase]["gather_by_row_bytes"].get(w, 0) > 0
                    for w in widths):
             raise AssertionError(f"{phase}: no gathers of {widths}-byte rows")
+    for phase in ("graph_single", "graph_grouped_auto", "graph_grouped_off",
+                  "sharded_single", "ivf_grouped"):
+        if phases[phase]["beam_iter"] <= 0:
+            raise AssertionError(f"{phase}: traversal never launched "
+                                 "beam_iter")
     main_pm = pm_cases["l2_mask_nvalid"]
     csr = sp["csr_ip"]
     trav = gather_cases["bf16_store"]
+    b_auto, fused_auto, walk_auto = gr["walk_auto"]
+    walk = beam_cases[f"main_{'fused' if fused_auto else 'split'}_b{b_auto}"]
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",
             "gemm_ms", "max_abs_err")
     print(json.dumps({"kernels": [
@@ -2125,7 +2402,23 @@ def main() -> int:
          "pct_of_bound": csr["pct_of_bound"],
          "three_pass_ms": csr["three_pass_ms"],
          "l2_variant_ms": csr["l2_variant_ms"],
-         "large_scatter": csr["large_scatter"]}]}), flush=True)
+         "large_scatter": csr["large_scatter"]},
+        {"name": "beam_iter", "route": "cuda",
+         "source": "vectordb_tpu_torch/csrc/beam_iter.cu",
+         "binding": "vectordb_tpu_torch/csrc/beam_iter_op.cpp",
+         "replaces": "vectordb_tpu/ops/beam.py:98",
+         "replaces_kind": "jitted XLA program, not a Pallas kernel",
+         "launches": sum(c["beam_iter"] for c in phases.values()),
+         "max_abs_err": max(c["max_abs_err"] for c in beam_cases.values()),
+         "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+         "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
+         "library_ms": None, "library": "none computes it",
+         "pct_of_bound": walk["pct_of_bound"],
+         "unit": f"the 1M graph's grouped walk (FusedTraversal auto): "
+                 f"{walk_auto['max_iters']} iterations of {b_auto} queries, "
+                 f"{'fused' if fused_auto else 'split'}, L "
+                 f"{walk_auto['beam_width']}",
+         "cases": beam_cases}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""The port on a CUDA device: the partial-min, row-gather and CSR
-inner-product kernels against their plain versions, the flat-serve and
+"""The port on a CUDA device: the partial-min, row-gather, CSR
+inner-product and beam-iteration kernels against their plain versions, the flat-serve and
 graph slices through the kernels, the query wires' device round trip
 against the host's and the flat-serve kernel path under the int8 wire,
 device filter masks against the host evaluator, a REST query over a CUDA
@@ -12,7 +12,10 @@ nor vectordb_tpu, so they also run where JAX is not installed:
 Tolerance (kernel vs plain version): both add exact bf16 x bf16 products
 in f32 in different orders — rtol 1e-5, atol 1e-5 * max(|q|^2 + |x|^2),
 and ids equal except at such near-ties. The row gather copies bytes, so it
-must equal its plain version bit for bit. The CSR inner product adds the
+must equal its plain version bit for bit, and so must the beam iteration
+on integer-valued rows and queries (every f32 sum of its scores is exact
+in any order there, and its merge keeps the plain version's ties). The
+CSR inner product adds the
 same f32 products in another order than its plain version: rtol 1e-5 plus
 1e-5 x sum |q_i x_i| of the row. Device filter masks must equal
 the host evaluator's bit for bit (the adversarial table below is also used
@@ -29,7 +32,7 @@ from vectordb_tpu_torch.config import global_config
 from vectordb_tpu_torch.db_server import DBServer
 from vectordb_tpu_torch.expr.evaluator import FilterCompiler
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import flat, gather, partial_min, qwire
+from vectordb_tpu_torch.ops import beam, flat, gather, partial_min, qwire
 from vectordb_tpu_torch.rest.server import RestServer
 from vectordb_tpu_torch.schema import MetricType
 
@@ -986,3 +989,221 @@ def test_sharded_table_over_two_cards(cuda_device, tmp_path):
     assert two["devices"] == {"cuda:0", "cuda:1"}
     assert two["flat"] == one["flat"]
     np.testing.assert_array_equal(two["ids"], one["ids"])
+
+
+def _walk_case(seed, n, d, r, b, L, metric, fused, max_iters, tw=0,
+               n_seed=8):
+    """A random graph of n integer-valued rows (values in [-3, 3], exact in
+    bf16 and int8) with 10% padding edges and a fifth of the rows repeating
+    an edge, b integer-valued queries, each query's beam seeded with n_seed
+    random rows at their exact distances, ascending (stable), then -1 /
+    inf. Returns the keyword arguments of beam.traverse on the CPU."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    q = rng.integers(-3, 4, size=(b, d)).astype(np.float32)
+    adj = rng.integers(0, n, size=(n, r)).astype(np.int32)
+    adj[rng.random((n, r)) < 0.1] = -1
+    rep = rng.random(n) < 0.2
+    adj[rep, 1] = adj[rep, 0]
+    ip = q @ x.T
+    dist = ((q * q).sum(1)[:, None] - 2 * ip + (x * x).sum(1)[None]
+            if metric == MetricType.EUCLIDEAN
+            else 1.0 - ip if metric == MetricType.COSINE else -ip)
+    ids = np.full((b, L), -1, np.int32)
+    dd = np.full((b, L), np.inf, np.float32)
+    for i in range(b):
+        s = rng.choice(n, min(n_seed, L), replace=False)
+        order = np.argsort(dist[i, s], kind="stable")
+        ids[i, :len(s)] = s[order]
+        dd[i, :len(s)] = dist[i, s[order]]
+    m = 4
+    kw = dict(q=torch.from_numpy(q).bfloat16(),
+              q_norms=torch.from_numpy((q * q).sum(1)),
+              table=torch.from_numpy(x).bfloat16(),
+              adjacency=torch.from_numpy(adj), fused=None, scale=None,
+              beam_ids=torch.from_numpy(ids), beam_exp=torch.zeros(
+                  (b, L), dtype=torch.bool), beam_d=torch.from_numpy(dd),
+              visited=torch.full((b, m * max_iters), -1, dtype=torch.int32),
+              metric=int(metric), expand=m, max_iters=max_iters,
+              term_width=tw, compact=0 if fused else 96)
+    if fused:
+        f = x[np.clip(adj, 0, n - 1)].astype(np.int8).reshape(n, r * d)
+        kw.update(fused=torch.from_numpy(f), scale=float(np.float32(0.375)))
+    return kw
+
+
+def _walk_both(kw, dev):
+    """beam.traverse from the same state: the plain version on the CPU, the
+    kernel on `dev`. Asserts the state equal bit for bit; returns the CPU
+    state and the kernel's launches."""
+    on_dev = {k: v.to(dev, copy=True) if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
+    before = beam.launches
+    beam.traverse(**on_dev)
+    torch.cuda.synchronize()
+    launched = beam.launches - before
+    beam.traverse(**kw)
+    for name in ("beam_ids", "beam_exp", "visited"):
+        assert torch.equal(on_dev[name].cpu(), kw[name]), name
+    assert torch.equal(on_dev["beam_d"].cpu().view(torch.int32),
+                       kw["beam_d"].view(torch.int32))
+    return kw, launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("path", ["split96", "split0", "fused"])
+def test_beam_kernel_equals_plain_version(cuda_device, metric, path):
+    """A batch of 64 walks, L 64, R 48, up to 16 iterations."""
+    kw = _walk_case(1, 4096, 128, 48, 64, 64, metric, path == "fused", 16)
+    if path == "split0":
+        kw["compact"] = 0
+    state, launched = _walk_both(kw, cuda_device)
+    assert launched == 16
+    assert int((state["visited"] >= 0).sum()) > 64 * 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_beam_kernel_full_batch(cuda_device, fused):
+    """2,048 walks, the grouped shape: many blocks a multiprocessor, so a
+    missing barrier between a block's phases shows."""
+    kw = _walk_case(6, 4096, 128, 48, 2048, 64, MetricType.EUCLIDEAN, fused,
+                    16)
+    _, launched = _walk_both(kw, cuda_device)
+    assert launched == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,r,b,fused", [(16, 16, 32, False),
+                                         (16, 48, 32, True),
+                                         (100, 16, 16, True),
+                                         (100, 48, 16, False),
+                                         (1024, 48, 2, False),
+                                         (1024, 16, 2, True)])
+def test_beam_kernel_widths_and_deep_walks(cuda_device, L, r, b, fused):
+    """Beams of 16 to 1,024 entries walked to full depth (max_iters = L, the
+    host asking the device flag every few launches), R 16 and 48; rows
+    that fell off a short beam come back as candidates."""
+    kw = _walk_case(2, 3000, 32, r, b, L, MetricType.EUCLIDEAN, fused, L)
+    state, launched = _walk_both(kw, cuda_device)
+    walked = int((state["visited"][0] >= 0).sum())
+    assert walked > L // 4 and launched >= walked // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused,cp", [(False, 1), (True, 0)])
+def test_beam_kernel_beam_past_48kb_of_shared_memory(cuda_device, fused,
+                                                      cp):
+    """L 3,000 (a widened beam under a selective filter): the block's
+    shared memory passes 48 KB, so the launch raises the kernel's limit;
+    split with cp 1, and fused."""
+    kw = _walk_case(7, 4000, 32, 48, 3, 3000, MetricType.COSINE, fused, 40,
+                    n_seed=3000)
+    kw["compact"] = cp
+    state, launched = _walk_both(kw, cuda_device)
+    assert launched >= 10 and int((state["visited"] >= 0).sum()) > 3 * 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused,b,iters", [(False, 3, 24), (True, 3, 24),
+                                           (False, 1, 23), (True, 1, 24)])
+def test_beam_kernel_beam_past_the_shared_memory_limit(cuda_device, fused,
+                                                       b, iters):
+    """L 16,000 (SearchEf 1,000 under the filter boost of 16): the double-
+    buffered beam passes the card's 227 KB of shared memory a block, so it
+    stays in global memory with a scratch copy; a batch a launch an
+    iteration, one query in one launch (an odd and an even count of merges,
+    so the last lands in either buffer)."""
+    kw = _walk_case(8, 20000, 32, 48, b, 16000, MetricType.EUCLIDEAN, fused,
+                    iters, n_seed=12000)
+    state, launched = _walk_both(kw, cuda_device)
+    assert launched == (1 if b == 1 else iters)
+    assert int((state["visited"] >= 0).sum()) == b * 4 * iters
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+def test_graph_query_with_a_beam_past_the_shared_memory_limit(
+        cuda_device, tmp_path, b):
+    """A graph table on the card searched at ef 1,000 with the filter boost
+    of 16 (a 16,000-entry beam, held in global memory): the kernel serves
+    it, the answer is the exact top 10."""
+    n, dim = 6000, 128
+    x, queries = _clustered_rows(n, dim, seed=23)
+    assert vdb.load_db("w", str(tmp_path / "w"), vector_scale=n) == 0
+    vdb.use_db("w")
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+         "metricType": "EUCLIDEAN"}])
+    vdb.insert_columns("t", {"ID": np.arange(n), "Emb": x})
+    assert vdb.update_config({"FlatServe": "off"}) == 0
+    assert vdb.rebuild() == 0
+    table = vdb._db.databases["w"].tables["t"]
+    beam.reset_launches()
+    ids, d = table.batch_dense_search(
+        "Emb", queries[:b], table.segment.valid_mask(), MetricType.EUCLIDEAN,
+        10, ef=1000, boost=16)
+    assert beam.launches > 0
+    for i in range(b):
+        dd = ((x - queries[i]) ** 2).sum(1)
+        assert set(ids[i].tolist()) == set(np.argsort(dd)[:10].tolist())
+        np.testing.assert_allclose(d[i], dd[ids[i]], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_beam_kernel_batch_where_queries_converge_apart(cuda_device):
+    """A batch whose queries stop at different depths alone (tw 6): the
+    batch walks until its last query stops, as JAX's `cond`."""
+    kw = _walk_case(3, 2000, 64, 48, 24, 32, MetricType.DOT_PRODUCT, False,
+                    16, tw=6)
+    alone = []
+    for i in range(24):
+        one = {k: (v[i:i + 1].clone() if isinstance(v, torch.Tensor)
+                   and v.dim() >= 1 and v.shape[0] == 24 else v)
+               for k, v in kw.items()}
+        beam.traverse(**one)
+        alone.append(int((one["visited"] >= 0).sum()))
+    assert len(set(alone)) > 1, alone
+    state, _ = _walk_both(kw, cuda_device)
+    walked = (state["visited"] >= 0).sum(1).tolist()
+    assert all(w >= a for w, a in zip(walked, alone))
+    assert walked[int(np.argmax(alone))] == max(alone)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("fused,L", [(False, 64), (True, 64),
+                                     (False, 1024)])
+def test_beam_kernel_single_query_walks_in_one_launch(cuda_device, metric,
+                                                      fused, L):
+    kw = _walk_case(4, 3000, 32, 48, 1, L, metric, fused, L)
+    state, launched = _walk_both(kw, cuda_device)
+    assert launched == 1
+    assert int((state["visited"] >= 0).sum()) > 4
+
+
+@pytest.mark.gpu
+def test_beam_kernel_rejects_what_it_does_not_take(cuda_device):
+    kw = _walk_case(5, 500, 32, 16, 4, 16, MetricType.EUCLIDEAN, False, 4)
+    kw = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+          for k, v in kw.items()}
+    flags = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    args = [kw[k] for k in ("q", "q_norms", "table", "adjacency", "fused",
+                            "scale", "beam_ids", "beam_exp", "beam_d",
+                            "visited")]
+    call = lambda *a, **over: beam.beam_iter(
+        *a, flags, over.get("expand", 4), 0, over.get("it_begin", 0),
+        over.get("it_end", 1), 96, 16, False)
+    with pytest.raises(TypeError):
+        call(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        call(*args, it_begin=0, it_end=2)  # a batch: one iteration a call
+    with pytest.raises(ValueError):
+        call(*args, it_begin=4, it_end=5)  # past visited
+    with pytest.raises(ValueError):
+        call(args[0][:, :24].contiguous(), args[1],
+             args[2][:, :24].contiguous(), *args[3:])  # rows of 24
+    with pytest.raises(ValueError):
+        call(*args, expand=17)  # more picks than the beam holds

@@ -68,7 +68,31 @@ QUERY_CASES = {
     "past_every_index": (np.array([2, 150, 400], np.int64),
                          np.array([1.0, 2.0, 3.0], np.float32)),
     "one_term": (np.array([99], np.int64), np.array([2.0], np.float32)),
+    # Terms no stored vector holds, and an unsorted query: the scatter
+    # leaves out a negative or far term, and order does not matter.
+    "negative_term": (np.array([-1, 3, 17], np.int64),
+                      np.array([5.0, 1.0, 1.0], np.float32)),
+    "unsorted": (np.array([17, 3], np.int64),
+                 np.array([1.0, 2.0], np.float32)),
+    "far_above": (np.array([3, 1_000_000], np.int64),
+                  np.array([1.0, 4.0], np.float32)),
 }
+
+
+def _oracle64(rows, qi, qv, metric):
+    """float64 distances of the query (as given) to every row: the inner
+    product over the shared terms, |q|^2 + |x|^2 - 2 ip, 1 - ip or -ip."""
+    q = dict(zip(qi.tolist(), qv.astype(np.float64).tolist()))
+    qn = float(np.dot(qv.astype(np.float64), qv.astype(np.float64)))
+    out = []
+    for r in rows:
+        idx, val = r if r is not None else ((), ())
+        ip = sum(q.get(int(i), 0.0) * float(v) for i, v in zip(idx, val))
+        xn = float(np.dot(np.asarray(val, np.float64),
+                          np.asarray(val, np.float64)))
+        out.append(qn + xn - 2 * ip if metric == MetricType.EUCLIDEAN
+                   else 1.0 - ip if metric == MetricType.COSINE else -ip)
+    return np.asarray(out)
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -91,6 +115,24 @@ def test_column_scores_match_jax(metric, case):
         tsparse.batch_distances(tq, _vectors(tsparse, rows),
                                 np.arange(5, 50), m),
         want[5:50], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, _oracle64(rows, qi, qv, m), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_column_scores_of_a_huge_term_id_match_float64(metric):
+    """A term id of 2^40 would size a 4 TiB scatter; it matches no row and
+    is left out (the JAX package cannot score it: its scatter is sized by
+    the last term). Held against the float64 oracle."""
+    rows = _random_column(np.random.default_rng(0), 300, 100, 12)
+    m = MetricType[metric]
+    qi = np.array([3, 17, 1 << 40], np.int64)
+    qv = np.array([1.0, 2.0, 3.0], np.float32)
+    tidx = tsparse.SparseColumnIndex(_vectors(tsparse, rows), len(rows))
+    want = _oracle64(rows, qi, qv, m)
+    for got in (tidx.scores(tsparse.SparseVector(qi, qv), m),
+                tidx.scores_host(tsparse.SparseVector(qi, qv), m)):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -189,6 +231,74 @@ def test_sparse_search_matches_jax(tmp_path, metric):
                 assert all(r["Cat"] == "b" for r in tres)
             if flt == "ID < 700":
                 assert all(r["ID"] < 700 for r in tres)
+
+
+# The sparse-query probes over 2,000 rows of 1-30 sorted terms below 500
+# (gamma values, seed 1): a negative term, an unsorted query, a term far
+# above `dimensions` (JAX scores it, sizing its scatter by it) and one the
+# JAX package cannot allocate a scatter for. `jax_right`: the JAX package
+# answers it with the oracle's ids and distances (it re-ranks an unsorted
+# query with a binary search that assumes sorted terms).
+SPARSE_PROBES = {
+    "negative_term": ([-1, 3, 17], [5.0, 1.0, 1.0], True),
+    "unsorted": ([17, 3], [1.0, 2.0], False),
+    "far_above": ([3, 17, 1_000_000], [1.0, 2.0, 7.0], True),
+    "huge_term": ([17, 3, 1 << 40], [1.0, 2.0, 7.0], False),
+}
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("probe", sorted(SPARSE_PROBES))
+def test_sparse_query_probes_match_float64_oracle(tmp_path, metric, probe):
+    """recall@10 1.0 against the float64 oracle of the query as given,
+    @distance within rtol 1e-5; the same ids and distances as the JAX
+    package where it is right."""
+    rng = np.random.default_rng(1)
+    rows = _random_column(rng, 2000, 500, 30, none_every=0)
+    qi, qv, jax_right = SPARSE_PROBES[probe]
+    m = MetricType[metric]
+    qi64, qv32 = np.asarray(qi, np.int64), np.asarray(qv, np.float32)
+    stored = rows
+    if m == MetricType.COSINE:  # the engine normalises query and rows
+        unit = lambda v: v / np.float32(np.sqrt(float(np.dot(v, v))))
+        qv32 = unit(qv32)
+        stored = [(i, unit(v)) for i, v in rows]
+    want_d = _oracle64(stored, qi64, qv32, m)
+    _sparse_table(tvdb, tmp_path / "t", metric, rows)
+    q = {"indices": qi, "values": qv}
+    _, tres = tvdb.query("s", "Vec", q, ["ID"], 10, "", True)
+    tid, td = _ids_d(tres)
+    assert len(tid) == 10
+    want = np.argsort(want_d, kind="stable")
+    kth = want_d[want[9]]
+    strict = {int(i) for i in want[:10] if want_d[i] < kth - 1e-6}
+    tied = {int(i) for i in np.flatnonzero(np.abs(want_d - kth) <= 1e-6)}
+    assert strict <= set(tid) <= strict | tied  # recall@10 1.0
+    np.testing.assert_allclose(td, want_d[tid], rtol=RTOL, atol=1e-6)
+    if jax_right:
+        _sparse_table(jvdb, tmp_path / "j", metric, rows)
+        _, jres = jvdb.query("s", "Vec", q, ["ID"], 10, "", True)
+        _same_results(tid, td, *_ids_d(jres))
+
+
+def test_sparse_field_past_int32_term_ids_is_refused(tmp_path):
+    """A sparse field of more than 2^31 - 1 dimensions is refused at
+    create_table (its term ids would wrap in the int32 CSR); the JAX package
+    accepts it. 2^31 - 1 itself is accepted."""
+    assert tvdb.load_db("big", str(tmp_path / "big")) == 0
+    tvdb.use_db("big")
+    fields = lambda dims: [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "Vec", "dataType": "SPARSE_VECTOR_FLOAT",
+         "dimensions": dims, "metricType": "DOT_PRODUCT"}]
+    with pytest.raises(Exception, match="at most 2147483647"):
+        tvdb.create_table("wide", fields(2**31))
+    assert tvdb.create_table("ok", fields(2**31 - 1)) == 0
+    assert tvdb.insert("ok", [{"ID": 1, "Vec": {
+        "indices": [5, 2**31 - 2], "values": [1.0, 2.0]}}]) == 0
+    _, res = tvdb.query("ok", "Vec", {"indices": [2**31 - 2],
+                                      "values": [1.0]}, ["ID"], 1, "", True)
+    assert [r["ID"] for r in res] == [1] and res[0]["@distance"] == -2.0
 
 
 def _engine_sparse_table(pkg, tmp_path, metric):

@@ -8,7 +8,8 @@ committed. Two kinds:
   so its cold build takes seconds;
 - PyTorch operator libraries (gather_rows_op: the gather kernel and the
   `vdb::gather_rows` operator; csr_ip_op: the sparse scorer's kernel and
-  the `vdb::csr_ip` operator), compiled against the installed PyTorch's
+  the `vdb::csr_ip` operator; beam_iter_op: the traversal kernel and the
+  `vdb::beam_iter` operator), compiled against the installed PyTorch's
   headers and libraries, which takes tens of seconds, and registered with
   torch.ops.load_library. Its key also holds the PyTorch version, so a new
   PyTorch never meets a library built against another one.
@@ -38,7 +39,8 @@ TORCH_LIBS = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 KERNELS: Dict[str, List[str]] = {"partial_min": ["partial_min.cu"]}
 OPERATORS: Dict[str, List[str]] = {
     "gather_rows_op": ["gather_rows.cu", "gather_rows_op.cpp"],
-    "csr_ip_op": ["csr_ip.cu", "csr_ip_op.cpp"]}
+    "csr_ip_op": ["csr_ip.cu", "csr_ip_op.cpp"],
+    "beam_iter_op": ["beam_iter.cu", "beam_iter_op.cpp"]}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

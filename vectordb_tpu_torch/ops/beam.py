@@ -5,36 +5,44 @@ A batch of queries each holds a beam of L (distance, row, expanded) entries
 kept sorted by distance, advanced in lockstep:
 
   iteration = pick the M best unexpanded beam entries
-            -> gather their adjacency rows      (ops/gather: the CUDA kernel)
+            -> read their adjacency rows
             -> drop padding, beam members, duplicates and visited rows
-            -> gather the candidates' rows and score them against the query
+            -> read the candidates' rows and score them against the query
             -> merge with the beam, stable sort by distance, keep L
 
-Every row gather goes through ops/gather.gather_rows, which launches the
-hand-written kernel csrc/gather_rows.cu on CUDA tensors. Scores are f32:
-bf16 and int8 operands are upcast before each product (their products are
-exact in f32, TF32 is off), matching the JAX package's f32-accumulating
-einsums up to summation order.
+On CUDA tensors one iteration of the whole batch is one launch of the
+hand-written kernel csrc/beam_iter.cu (torch.ops.vdb.beam_iter, through
+beam_iter), and a single query's whole walk is one launch; on CPU tensors
+beam_iter runs beam_iteration_ref, its plain version (about 50 torch ops an
+iteration, the port's loop body before the kernel). The seed scan, the
+masked top-k and the re-rank stay torch ops, their row gathers on
+ops/gather.gather_rows (csrc/gather_rows.cu). Scores are f32: bf16 and int8
+operands are upcast before each product (their products are exact in f32,
+TF32 is off), matching the JAX package's f32-accumulating einsums up to
+summation order.
 
 Translation notes:
-  - `lax.sort` of (distance, id, expanded) becomes a stable `torch.sort` of
-    the distance with ids and flags gathered by its permutation; the stable
-    compaction sort stays stable.
+  - `lax.sort` of (distance, id, expanded) becomes a stable sort (the
+    kernel's merge: ties to the beam, then to the lower candidate column);
+    the stable compaction stays stable (survivors in column order).
   - Pick rule: the beam is always sorted, so the M best unexpanded finite
     entries are the first M of them in beam order; the pick takes them in
     position order (and unavailable positions after them, also in order).
     Equal scores therefore go to the lower beam position, which is
     `lax.top_k`'s rule, and the pick is deterministic on the card too.
     The masked top-k of beam_search_topk uses the same rule.
-  - Duplicate detection takes `torch.argmax` of a uint8 equality matrix
-    (torch's argmax rejects bool); its first-maximum rule is jnp.argmax's.
+  - Duplicate detection keeps a candidate's first occurrence (the plain
+    version: `torch.argmax` of a uint8 equality matrix, jnp.argmax's
+    first-maximum rule; the kernel: a hash table of first columns).
   - Seeding from >= 4,096 representatives uses exact `torch.topk` where the
     JAX package takes `approx_min_k` (exact on the CPU).
-  - Traversals of at most UNROLL_MAX_ITERS iterations run as a fixed-depth
-    loop in which a converged batch keeps its state (`torch.where` on a
-    device scalar), so the loop never waits for the device and one
-    traversal can later be captured as a CUDA graph. Deeper walks test the
-    convergence on the host before each iteration.
+  - The stop rule is JAX's `cond` (no query of the batch has work). Each
+    iteration writes "some query has work" to a device flag that the next
+    iteration's launch reads first, a no-op when it is 0, so the loop never
+    waits for the device; a walk deeper than UNROLL_MAX_ITERS asks the host
+    every DEEP_CHECK_EVERY launches whether to go on.
+  - The state (beam, flags, visited) is updated in place, one copy a
+    traversal, where JAX's loop carries new arrays.
   - beam_search_grouped takes f32 queries and a query wire (ops/qwire):
     traversal runs on the wire's values, as JAX's decoded `packed_gb`
     buffer, and the exact re-rank on the f32 queries, where JAX re-ranks
@@ -112,6 +120,268 @@ def _first_m(avail: torch.Tensor, m: int) -> torch.Tensor:
     return torch.topk(key, m, dim=1, largest=False, sorted=True)[1]
 
 
+# Kernel launches since the last reset (CPU calls of the plain version are
+# not counted): a run reads it to show the traversal went through the
+# kernel.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def beam_iter_cost(b: int, beam_width: int, visited: int, picks: int,
+                   degree: int, rows: int, row_bytes: int) -> int:
+    """Bytes one launch of beam_iter must move, each counted once: the beam
+    of b queries (int32 id, f32 distance, bool flag a slot) read and
+    written, `visited` ids read or written in all, the adjacency rows of
+    `picks` valid picks (degree int32 each), and the `rows` candidate rows
+    it scored (row_bytes each: d elements of the table, or a fused row's d
+    int8 slice). Its 2 FMAs a candidate element stay under 4 flops a byte,
+    so the bound is these bytes at the HBM rate
+    (partial_min.bound_ms(0, bytes))."""
+    return (2 * 9 * b * beam_width + 4 * visited + 4 * degree * picks
+            + rows * row_bytes)
+
+
+def _has_work(beam_exp: torch.Tensor, beam_d: torch.Tensor,
+              tw: int) -> torch.Tensor:
+    """A device scalar: some query has an unexpanded finite entry among its
+    first tw beam positions (JAX's `cond`)."""
+    return (~beam_exp[:, :tw] & torch.isfinite(beam_d[:, :tw])).any()
+
+
+def _iteration(q, q_norms, table, adjacency, fused, scale, state, expand: int,
+               metric: int, it: int, cp: int):
+    """One traversal iteration of the whole batch in torch ops (the port's
+    loop body before the kernel): pick, visited, adjacency, dedup, score,
+    merge. Returns the new (beam_ids, beam_exp, beam_d, visited)."""
+    beam_ids, beam_exp, beam_d, visited = state
+    b, d = q.shape
+    M, R = expand, adjacency.shape[1]
+    C = M * R
+    avail = ~beam_exp & torch.isfinite(beam_d)
+    pick_idx = _first_m(avail, M)                      # [B, M]
+    picked_valid = torch.gather(avail, 1, pick_idx)
+    picked_ids = torch.gather(beam_ids, 1, pick_idx)
+    beam_exp = beam_exp.scatter(1, pick_idx, True)
+    visited = torch.cat([
+        visited[:, :it * M],
+        torch.where(picked_valid, picked_ids, -1),
+        visited[:, (it + 1) * M:]], dim=1)
+
+    cand = gather_rows(adjacency, picked_ids).reshape(b, C)
+    cand = torch.where(picked_valid.repeat_interleave(R, dim=1), cand, -1)
+    # Invalid: padding edges, beam members, repeats within the
+    # candidates (all but the first), rows already expanded.
+    in_beam = (cand[:, :, None] == beam_ids[:, None, :]).any(dim=2)
+    first = torch.argmax(
+        (cand[:, :, None] == cand[:, None, :]).to(torch.uint8), dim=2)
+    seen = (cand[:, :, None] == visited[:, None, :]).any(dim=2)
+    cols = torch.arange(C, device=cand.device)
+    bad = (cand < 0) | in_beam | (first != cols) | seen
+
+    if fused is not None:
+        # The neighbour vectors arrive with the adjacency row:
+        # duplicates cost only arithmetic, so they are masked after
+        # scoring instead of compacted before a second gather.
+        rows = gather_rows(fused, picked_ids).reshape(b, C, d)
+        cand_d = _cand_scores_q(q, rows, q_norms, scale, metric)
+        cand_d = cand_d.masked_fill(bad, _INF)
+        cand_ids = torch.where(bad, -1, cand)
+    else:
+        cand = torch.where(bad, -1, cand)
+        if 0 < cp < C:
+            # Stable compaction: survivors keep pick-major order, so
+            # the best picks' neighbourhoods win when > cp survive.
+            order = torch.sort((cand < 0).to(torch.int32), dim=1,
+                               stable=True)[1]
+            cand = torch.gather(cand, 1, order[:, :cp])
+        vecs = gather_rows(table, cand)
+        cand_d = _cand_scores(q, vecs, q_norms, metric)
+        cand_d = cand_d.masked_fill(cand < 0, _INF)
+        cand_ids = cand
+
+    L = beam_d.shape[1]
+    all_d = torch.cat([beam_d, cand_d], dim=1)
+    all_ids = torch.cat([beam_ids, cand_ids], dim=1)
+    all_exp = torch.cat([beam_exp, torch.zeros_like(cand_ids,
+                                                    dtype=torch.bool)],
+                        dim=1)
+    sd, order = torch.sort(all_d, dim=1, stable=True)
+    keep = order[:, :L]
+    return (torch.gather(all_ids, 1, keep), torch.gather(all_exp, 1, keep),
+            sd[:, :L], visited)
+
+
+def beam_iteration_ref(q, q_norms, table, adjacency, fused, scale,
+                       beam_ids, beam_exp, beam_d, visited, flags,
+                       expand: int, metric: int, it_begin: int, it_end: int,
+                       cp: int, tw: int, peel: bool) -> None:
+    """Plain PyTorch version of beam_iter, with its signature and flag
+    semantics; updates beam_ids, beam_exp, beam_d, visited and flags in
+    place. Iterations it_begin .. it_end - 1 in turn: iteration `it` runs
+    when the batch had work (for one query, its own state says so; for a
+    batch, flags[it] != 0), except a peeled iteration 0 (peel), which runs
+    always and uncompacted; after each, flags[it + 1] is set to 1 when
+    some query has work left (_has_work over the first tw positions)."""
+    state = (beam_ids, beam_exp, beam_d, visited)
+    single = q.shape[0] == 1
+    for it in range(it_begin, it_end):
+        peeled = peel and it == 0
+        if not peeled and not bool(_has_work(state[1], state[2], tw)
+                                   if single else flags[it]):
+            break
+        state = _iteration(q, q_norms, table, adjacency, fused, scale, state,
+                           expand, metric, it, 0 if peeled else cp)
+        if it + 1 < flags.shape[0] and bool(_has_work(state[1], state[2],
+                                                      tw)):
+            flags[it + 1] = 1
+    for dst, src in zip((beam_ids, beam_exp, beam_d, visited), state):
+        dst.copy_(src)
+
+
+def _check(q, q_norms, table, adjacency, fused, beam_ids, beam_exp, beam_d,
+           visited, flags, expand: int, it_begin: int, it_end: int,
+           tw: int) -> None:
+    """The operator's checks, in Python (the kernel also needs rows of a
+    multiple of 16 elements, which only the operator checks)."""
+    if table.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"beam_iter: table must be bfloat16 or float32, got "
+                        f"{table.dtype}")
+    if q.dtype != table.dtype:
+        raise TypeError(f"beam_iter: q must have the table's dtype "
+                        f"{table.dtype}, got {q.dtype}")
+    for name, t, dtype in (("q_norms", q_norms, torch.float32),
+                           ("beam_d", beam_d, torch.float32),
+                           ("adjacency", adjacency, torch.int32),
+                           ("beam_ids", beam_ids, torch.int32),
+                           ("visited", visited, torch.int32),
+                           ("flags", flags, torch.int32),
+                           ("beam_exp", beam_exp, torch.bool)):
+        if t.dtype != dtype:
+            raise TypeError(f"beam_iter: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+    if fused is not None and fused.dtype != torch.int8:
+        raise TypeError(f"beam_iter: fused must be int8, got {fused.dtype}")
+    b, d = q.shape
+    L, R = beam_ids.shape[1], adjacency.shape[1]
+    if (table.shape[1] != d or q_norms.shape != (b,)
+            or beam_ids.shape != (b, L) or beam_exp.shape != (b, L)
+            or beam_d.shape != (b, L) or visited.shape[0] != b
+            or (fused is not None and fused.shape[1] != R * d)):
+        raise ValueError("beam_iter: shapes disagree")
+    if not (1 <= expand <= L and expand * R <= 4096):
+        raise ValueError(f"beam_iter: needs 1 <= expand <= L and expand * R "
+                         f"<= 4096, got expand {expand}, L {L}, R {R}")
+    if not (0 <= it_begin <= it_end and it_end * expand <= visited.shape[1]
+            and it_end <= flags.shape[0]):
+        raise ValueError(f"beam_iter: iterations [{it_begin}, {it_end}) do "
+                         "not fit visited or flags")
+    if b > 1 and it_end > it_begin + 1:
+        raise ValueError(f"beam_iter: a batch of {b} queries runs one "
+                         "iteration a launch")
+    if not 0 <= tw <= L:
+        raise ValueError(f"beam_iter: tw {tw} outside [0, L]")
+
+
+_op = None
+
+
+def _operator():
+    """torch.ops.vdb.beam_iter, its library built and registered on first
+    use (_cuda_build raises, naming nvcc's output, if it fails)."""
+    global _op
+    if _op is None:
+        from .. import _cuda_build
+
+        _cuda_build.load_operator("beam_iter_op")
+        _op = torch.ops.vdb.beam_iter.default
+    return _op
+
+
+def beam_iter(q, q_norms, table, adjacency, fused, scale, beam_ids,
+              beam_exp, beam_d, visited, flags, expand: int, metric: int,
+              it_begin: int, it_end: int, cp: int, tw: int,
+              peel: bool) -> None:
+    """Traversal iterations [it_begin, it_end) of every query, in place on
+    the state (beam_ids [B, L] int32, beam_exp [B, L] bool, beam_d [B, L]
+    f32 ascending, visited [B, V] int32, flags [n] int32; see
+    beam_iteration_ref for the flag rule). A batch (B > 1) runs one
+    iteration a call. q [B, D] in table's dtype, q_norms [B] f32 (of the
+    f32 queries), table [N, D] bf16/f32, adjacency [N', R] int32, fused
+    optional [N'', R*D] int8 with its dequant `scale`; cp: survivors scored
+    an iteration on the split path (0: all). On CUDA tensors the kernel
+    (csrc/beam_iter.cu through torch.ops.vdb.beam_iter), on CPU tensors
+    beam_iteration_ref. Both raise TypeError for a wrong dtype and
+    ValueError for the other arguments the kernel does not take."""
+    global launches
+    if table.is_cuda:
+        (_op if _op is not None else _operator())(
+            q, q_norms, table, adjacency, fused, float(scale or 0.0),
+            beam_ids, beam_exp, beam_d, visited, flags, expand, metric,
+            it_begin, it_end, cp, tw, peel)
+        if it_end > it_begin:
+            launches += 1
+        return
+    if table.device.type != "cpu":
+        raise ValueError(f"beam_iter: table on {table.device}; the kernel "
+                         "takes CUDA tensors, the plain version CPU ones")
+    _check(q, q_norms, table, adjacency, fused, beam_ids, beam_exp, beam_d,
+           visited, flags, expand, it_begin, it_end, tw)
+    beam_iteration_ref(q, q_norms, table, adjacency, fused, scale, beam_ids,
+                       beam_exp, beam_d, visited, flags, expand, metric,
+                       it_begin, it_end, cp, tw, peel)
+
+
+# A batch's deep walk (> UNROLL_MAX_ITERS iterations) asks the host whether
+# any query has work left before every DEEP_CHECK_EVERY-th launch.
+DEEP_CHECK_EVERY = 4
+
+
+def traverse(q, q_norms, table, adjacency, fused, scale, beam_ids,
+             beam_exp, beam_d, visited, metric: int, expand: int,
+             max_iters: int, term_width: int = 0, compact: int = 0) -> None:
+    """Up to max_iters iterations of beam_iter from the given state, in
+    place (beam_search_kernel after its seed scan; arguments as there and
+    in beam_iter). Iteration 0 of the split path runs uncompacted and
+    unconditionally (JAX's peel). A single query walks in one launch; a
+    batch launches one iteration at a time, each a no-op once the previous
+    one left no query with work (the device flag), so the loop never waits
+    for the device, except that a walk deeper than UNROLL_MAX_ITERS stops
+    launching when the host, asking every DEEP_CHECK_EVERY launches, finds
+    the flag 0."""
+    b, L = beam_ids.shape
+    C = expand * adjacency.shape[1]
+    cp = compact if compact > 0 else C
+    tw = min(term_width if term_width > 0 else L, L)
+    peel = fused is None and 0 < cp < C and max_iters > 0
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32,
+                        device=beam_ids.device)
+
+    def run(it_begin: int, it_end: int, first: bool) -> None:
+        beam_iter(q, q_norms, table, adjacency, fused, scale, beam_ids,
+                  beam_exp, beam_d, visited, flags, expand, metric, it_begin,
+                  it_end, cp, tw, first and peel)
+
+    if b == 1:
+        run(0, max_iters, True)
+        return
+    done = 0
+    if peel:
+        run(0, 1, True)
+        done = 1
+    else:
+        flags[:1] = _has_work(beam_exp, beam_d, tw)
+    deep = max_iters > UNROLL_MAX_ITERS
+    for it in range(done, max_iters):
+        if (deep and it > done and (it - done) % DEEP_CHECK_EVERY == 0
+                and not bool(flags[it])):
+            break
+        run(it, it + 1, False)
+
+
 def beam_search_kernel(queries: torch.Tensor, table: torch.Tensor,
                        norms: torch.Tensor, adjacency: torch.Tensor,
                        rep_ids: torch.Tensor, metric: int, beam_width: int,
@@ -119,7 +389,8 @@ def beam_search_kernel(queries: torch.Tensor, table: torch.Tensor,
                        term_width: int = 0, compact: int = 0,
                        fused: Optional[torch.Tensor] = None,
                        scale: Optional[float] = None):
-    """Seed scan over the representatives, then up to max_iters expansions.
+    """Seed scan over the representatives, then up to max_iters expansions
+    (traverse: beam_iter, the kernel on the card).
 
     queries:   [B, D] f32 (padded to the table's lane width)
     table:     [N_pad, D] store dtype (bf16/f32); norms [N_pad] f32
@@ -135,13 +406,10 @@ def beam_search_kernel(queries: torch.Tensor, table: torch.Tensor,
     Returns (beam_d [B, L] f32 ascending, beam_ids [B, L] int32, visited
     [B, M*max_iters] int32: the ids expanded per iteration, -1 padded).
     """
-    b, d = queries.shape
+    b = queries.shape[0]
     dev = table.device
     L, M = beam_width, expand
-    R = adjacency.shape[1]
-    C = M * R
-    cp_all = compact if compact > 0 else C
-    q = queries.to(table.dtype)
+    q = queries.to(table.dtype).contiguous()
     q_norms = (queries.float() ** 2).sum(dim=1)
 
     # Seed scan: every query scores all representatives and seeds its beam
@@ -168,86 +436,8 @@ def beam_search_kernel(queries: torch.Tensor, table: torch.Tensor,
     beam_exp = torch.zeros((b, L), dtype=torch.bool, device=dev)
     visited = torch.full((b, M * max_iters), -1, dtype=torch.int32,
                          device=dev)
-    cols = torch.arange(C, device=dev)
-    tw = min(term_width if term_width > 0 else L, L)
-
-    def has_work(state):
-        _, exp, bd, _ = state
-        return (~exp[:, :tw] & torch.isfinite(bd[:, :tw])).any()
-
-    def body(state, it: int, cp: int):
-        beam_ids, beam_exp, beam_d, visited = state
-        avail = ~beam_exp & torch.isfinite(beam_d)
-        pick_idx = _first_m(avail, M)                      # [B, M]
-        picked_valid = torch.gather(avail, 1, pick_idx)
-        picked_ids = torch.gather(beam_ids, 1, pick_idx)
-        beam_exp = beam_exp.scatter(1, pick_idx, True)
-        visited = torch.cat([
-            visited[:, :it * M],
-            torch.where(picked_valid, picked_ids, -1),
-            visited[:, (it + 1) * M:]], dim=1)
-
-        cand = gather_rows(adjacency, picked_ids).reshape(b, C)
-        cand = torch.where(picked_valid.repeat_interleave(R, dim=1), cand, -1)
-        # Invalid: padding edges, beam members, repeats within the
-        # candidates (all but the first), rows already expanded.
-        in_beam = (cand[:, :, None] == beam_ids[:, None, :]).any(dim=2)
-        first = torch.argmax(
-            (cand[:, :, None] == cand[:, None, :]).to(torch.uint8), dim=2)
-        seen = (cand[:, :, None] == visited[:, None, :]).any(dim=2)
-        bad = (cand < 0) | in_beam | (first != cols) | seen
-
-        if fused is not None:
-            # The neighbour vectors arrive with the adjacency row:
-            # duplicates cost only arithmetic, so they are masked after
-            # scoring instead of compacted before a second gather.
-            rows = gather_rows(fused, picked_ids).reshape(b, C, d)
-            cand_d = _cand_scores_q(q, rows, q_norms, scale, metric)
-            cand_d = cand_d.masked_fill(bad, _INF)
-            cand_ids = torch.where(bad, -1, cand)
-        else:
-            cand = torch.where(bad, -1, cand)
-            if 0 < cp < C:
-                # Stable compaction: survivors keep pick-major order, so
-                # the best picks' neighbourhoods win when > cp survive.
-                order = torch.sort((cand < 0).to(torch.int32), dim=1,
-                                   stable=True)[1]
-                cand = torch.gather(cand, 1, order[:, :cp])
-            vecs = gather_rows(table, cand)
-            cand_d = _cand_scores(q, vecs, q_norms, metric)
-            cand_d = cand_d.masked_fill(cand < 0, _INF)
-            cand_ids = cand
-
-        all_d = torch.cat([beam_d, cand_d], dim=1)
-        all_ids = torch.cat([beam_ids, cand_ids], dim=1)
-        all_exp = torch.cat([beam_exp, torch.zeros_like(cand_ids,
-                                                        dtype=torch.bool)],
-                            dim=1)
-        sd, order = torch.sort(all_d, dim=1, stable=True)
-        keep = order[:, :L]
-        return (torch.gather(all_ids, 1, keep),
-                torch.gather(all_exp, 1, keep), sd[:, :L], visited)
-
-    state = (beam_ids, beam_exp, beam_d, visited)
-    done = 0
-    if fused is None and 0 < cp_all < C and max_iters > 0:
-        # Iteration 0 runs uncompacted: every seed's edges are fresh there,
-        # and truncation would drop the lower-ranked seeds' neighbourhoods
-        # while marking them expanded.
-        state = body(state, 0, 0)
-        done = 1
-    if max_iters <= UNROLL_MAX_ITERS:
-        for it in range(done, max_iters):
-            live = has_work(state)
-            nxt = body(state, it, cp_all)
-            state = tuple(torch.where(live, new, old)
-                          for new, old in zip(nxt, state))
-    else:
-        it = done
-        while it < max_iters and bool(has_work(state)):
-            state = body(state, it, cp_all)
-            it += 1
-    beam_ids, _, beam_d, visited = state
+    traverse(q, q_norms, table, adjacency, fused, scale, beam_ids, beam_exp,
+             beam_d, visited, metric, M, max_iters, term_width, compact)
     return beam_d, beam_ids, visited
 
 

@@ -63,6 +63,23 @@ class SparseVector:
     def norm_sq(self) -> float:
         return float(np.dot(self.values, self.values))
 
+    def sorted(self) -> "SparseVector":
+        """The same terms in ascending index order (stable), which the
+        merge-join's binary search (inner_product) assumes."""
+        if np.all(self.indices[1:] >= self.indices[:-1]):
+            return self
+        order = np.argsort(self.indices, kind="stable")
+        return SparseVector(self.indices[order], self.values[order])
+
+    def within(self, n_terms: int) -> "SparseVector":
+        """The terms whose index lies in [0, n_terms): those a stored vector
+        of n_terms dimensions can hold (the others add 0 to every inner
+        product)."""
+        keep = (self.indices >= 0) & (self.indices < n_terms)
+        if keep.all():
+            return self
+        return SparseVector(self.indices[keep], self.values[keep])
+
     def normalized(self) -> "SparseVector":
         s = self.norm_sq()
         if s > 1e-10:
@@ -265,6 +282,9 @@ class SparseColumnIndex:
                        if val_parts else np.zeros(0, np.float32))
         self.offsets = np.asarray(offsets, dtype=np.int64)
         self.n_rows = n_rows
+        # One past the largest stored index: a query's terms outside [0,
+        # n_terms) match no row, so no scatter holds them.
+        self.n_terms = int(self.indices.max()) + 1 if len(self.indices) else 0
         self.norms_sq = _row_sums(self.values.astype(np.float64) ** 2,
                                   self.offsets).astype(np.float32)
         self.device = default_device()
@@ -282,18 +302,31 @@ class SparseColumnIndex:
                 torch.from_numpy(self.norms_sq).to(dev))
         return self._dev
 
+    def _scatter(self, query: SparseVector) -> Optional[np.ndarray]:
+        """The query's dense f32 scatter over its terms in [0, n_terms),
+        with a trailing zero; None when no term is in that range. A term
+        outside it (negative, or past every stored index) matches no row
+        and is left out, so it can neither land on the trailing slot nor
+        size the scatter; the query's order does not matter."""
+        q = query.within(self.n_terms)
+        if not len(q.indices):
+            return None
+        qdense = np.zeros(int(q.indices.max()) + 2, dtype=np.float32)
+        qdense[q.indices] = q.values
+        return qdense
+
     def device_scores(self, query: SparseVector,
                       metric: MetricType) -> torch.Tensor:
         """Distances of the query to every row, [n_rows] f32 on the index's
-        device. The query's dense scatter gets a trailing zero, and
-        csr_ip's clamp to [0, len - 1] lands every stored index past the
-        query's largest on it (JAX's jnp.minimum(idx, len) on the
-        zero-padded scatter). An empty query or column launches nothing."""
+        device. The query's dense scatter (_scatter) gets a trailing zero,
+        and csr_ip's clamp to [0, len - 1] lands every stored index past
+        the query's largest on it (JAX's jnp.minimum(idx, len) on the
+        zero-padded scatter). The EUCLIDEAN norm is the whole query's. A
+        query with no term in range, or an empty column, launches
+        nothing."""
         idx, val, offs, norms = self._device_arrays()
-        if len(query.indices) and len(self.indices):
-            qmax = int(query.indices.max()) + 1
-            qdense = np.zeros(qmax + 1, dtype=np.float32)
-            qdense[query.indices] = query.values
+        qdense = self._scatter(query)
+        if qdense is not None:
             ip = csr_ip(idx, val, offs,
                         torch.from_numpy(qdense).to(self.device))
         else:
@@ -309,10 +342,9 @@ class SparseColumnIndex:
     def scores_host(self, query: SparseVector,
                     metric: MetricType) -> np.ndarray:
         """Pure-numpy scoring path (no device round trip)."""
-        if len(query.indices):
-            qmax = int(query.indices[-1]) + 1
-            qdense = np.zeros(qmax + 1, dtype=np.float32)
-            qdense[query.indices] = query.values
+        qdense = self._scatter(query)
+        if qdense is not None:
+            qmax = len(qdense) - 1
             contrib = np.where(self.indices < qmax,
                                qdense[np.minimum(self.indices, qmax)]
                                * self.values, 0.0)

@@ -70,6 +70,8 @@ METRIC_TYPE_NAMES = {
 DENSE_VECTOR_TYPES = (FieldType.VECTOR_FLOAT, FieldType.VECTOR_DOUBLE)
 SPARSE_VECTOR_TYPES = (FieldType.SPARSE_VECTOR_FLOAT, FieldType.SPARSE_VECTOR_DOUBLE)
 VECTOR_TYPES = DENSE_VECTOR_TYPES + SPARSE_VECTOR_TYPES
+# The sparse CSR holds term ids as int32 (ops/sparse.SparseColumnIndex).
+MAX_SPARSE_DIMENSIONS = 2**31 - 1
 INT_TYPES = (FieldType.INT1, FieldType.INT2, FieldType.INT4, FieldType.INT8)
 
 # numpy dtype for each primitive attribute column.
@@ -293,6 +295,14 @@ def parse_table_schema_from_user_json(body: Dict[str, Any]) -> TableSchema:
             raise VectorDBError(USER_ERROR, "Vector field must have dimensions.")
         if "dimensions" in bf:
             f.vector_dimension = int(bf["dimensions"])
+        if f.is_sparse_vector() and f.vector_dimension > MAX_SPARSE_DIMENSIONS:
+            # Divergence: the JAX package accepts such a field, and its
+            # int32 CSR indices wrap silently.
+            raise VectorDBError(
+                USER_ERROR, f"Sparse vector field {f.name} has "
+                f"{f.vector_dimension} dimensions; at most "
+                f"{MAX_SPARSE_DIMENSIONS} are supported (term ids are int32 "
+                "on the device).")
         if "metricType" in bf:
             f.metric_type = get_metric_type(str(bf["metricType"]))
             if f.metric_type == MetricType.UNKNOWN:

@@ -137,6 +137,7 @@ class Table:
         self.embedding_service = embedding_service
         self.field_type_map = schema.field_type_map()
         self.metric_map = {f.name: f.metric_type for f in schema.fields}
+        self.dim_map = {f.name: f.vector_dimension for f in schema.fields}
 
         self.segment_path = os.path.join(db_path, str(schema.id), "data.vdb")
         self.segment = TableSegment.load(self.segment_path, schema,
@@ -1152,7 +1153,8 @@ class Table:
             h["dev"], h["shard_ctx"] = self._sharded_launch(
                 sf, field_name, queries, valid, metric, k_eff, n, n_alive,
                 mask_cacheable, ef=ef, shard_filter=shard_filter,
-                boost=boost, pre_filter=pre_filter, iters=iters)
+                boost=boost, pre_filter=pre_filter, iters=iters,
+                b_real=b_real)
             return h
         use_graph = (graph is not None
                      and n >= self.config.brute_force_threshold
@@ -1185,8 +1187,12 @@ class Table:
             dm = self._composed_device_mask(store, valid, mask_cacheable,
                                             filter_ctx)
         k_out = min(k_eff + GRAPH_SLACK, graph.num_rows)
-        qp = np.zeros((queries.shape[0], store.dim_padded), dtype=np.float32)
-        qp[:, : queries.shape[1]] = queries
+        # Only the real queries walk: the bucket's padding rows copy query
+        # 0, so they neither change the batch's stop rule nor need a walk
+        # of their own (fetch_dense_search copies query 0's result to
+        # them), and a single query walks as a batch of one: one launch.
+        qp = np.zeros((b_real, store.dim_padded), dtype=np.float32)
+        qp[:, : queries.shape[1]] = queries[:b_real]
         bw = max(self._field_ef(field_name, ef) * boost, k_out)
         # The termination window scales with the boost too: a filtered walk
         # must reach the filtered-rank-k neighbours before it stops.
@@ -1214,7 +1220,14 @@ class Table:
         Host-only work stays in collect_dense_search, so a pipelining
         caller dispatches the NEXT batch between fetch and collect."""
         if "dev" in h and "dev_host" not in h:
-            h["dev_host"] = tuple(t.cpu().numpy() for t in h["dev"])
+            host = tuple(t.cpu().numpy() for t in h["dev"])
+            # A graph walk ran the real queries only: the padding rows,
+            # copies of query 0, get its result.
+            pad = h["queries"].shape[0] - host[0].shape[0]
+            if pad:
+                host = tuple(np.concatenate([x, np.repeat(x[:1], pad, 0)])
+                             for x in host)
+            h["dev_host"] = host
             del h["dev"]
         return h
 
@@ -1264,10 +1277,13 @@ class Table:
                         n: int, n_alive: int, mask_cacheable: bool,
                         ef: Optional[int] = None, shard_filter=None,
                         boost: int = 1, pre_filter: bool = False,
-                        iters: Optional[int] = None):
+                        iters: Optional[int] = None,
+                        b_real: Optional[int] = None):
         """Launch candidate generation on the sharded plane: per-shard beam
         search (+ tail) or per-shard flat scan, merged to GLOBAL ids.
-        Returns (device tensors, context for collect's top-up)."""
+        The per-shard walks take only the first b_real queries (the rest
+        pad the bucket with copies of query 0). Returns (device tensors,
+        context for collect's top-up)."""
         seg = self.segment
         sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
         qp = self._pad_queries(sf.store, queries)
@@ -1302,7 +1318,8 @@ class Table:
         # The tuned depth applies as on one device; boosted (filtered)
         # searches walk full depth.
         it = 0 if boost > 1 else self._field_iters(field_name, beam, iters)
-        dev = sf.launch(qp, valid, metric, k_cand, use_graph=use_graph,
+        dev = sf.launch(qp[:b_real] if use_graph else qp, valid, metric,
+                        k_cand, use_graph=use_graph,
                         beam_width=beam, expand=self.config.beam_expand,
                         term_width=term, mask_version=ver,
                         compact=self._sharded_compact(sf),
@@ -1441,12 +1458,23 @@ class Table:
         distances of those candidates on the host, ascending (ties to the
         lower row id). Rows without a vector rank last (+inf).
         mask_cacheable: `valid` is the pure validity mask, whose device
-        copy is reused while the mutation version holds."""
+        copy is reused while the mutation version holds.
+
+        The query is normalised here, where Table.search and hybrid_search
+        both pass: its terms are sorted (the merge-join's binary search
+        assumes it), and the device scan takes only the terms in [0,
+        dimensions), which ingest lets no stored vector exceed, so a
+        negative or huge term id neither corrupts nor sizes the scatter.
+        The re-rank scores the whole sorted query, so EUCLIDEAN keeps its
+        norm. Divergence: the JAX package re-ranks the query as given, and
+        reports wrong distances for an unsorted one."""
         n_valid = int(np.count_nonzero(valid))
         if n_valid == 0:
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64)
+        query = query.sorted()
         index = self._sparse_index(field_name)
-        d = index.device_scores(query, metric)
+        d = index.device_scores(query.within(self.dim_map[field_name]),
+                                metric)
         keep = self._device_mask(index.n_rows, d.device, valid, 0,
                                  mask_cacheable)
         d = d.masked_fill(~keep, float("inf"))
