@@ -19,11 +19,16 @@ block int8) bit for bit against the host's on 8,192 x 128 queries, with the
 prologue's time at a super-chunk of 8,192 x 128; and the beam iteration
 (ops/beam.beam_iter) bit for bit against beam_iteration_ref over a walk of
 16 iterations at the 1M graph's shape (1,000,000 integer-valued bf16 rows
-of 128, R = 48, L = 64), split (cp 96) and fused, for 2,048 queries (one
-launch an iteration) and for one (one launch), with the walk's time beside
-its bound (the bytes its data needs, beam.beam_iter_cost's terms); after
-the graph phase, the same at the walks that phase gave the kernel (its
-tuned beam: the grouped walk fused and split, the single query's).
+of 128, R = 48, L = 64), split (cp 96) and fused, for 2,048 queries and
+for one, in every variant (a warp a query, a block a query) and mode (the
+walk in one launch, a launch an iteration) the kernel can run it in, each
+variant's registers, stack, shared memory and resident queries a
+multiprocessor on a line of its own, every plan's time beside the walk's
+bound (beam.walk_bytes: the bytes its data needs) in turns with the plain
+version; after the graph phase, the same at the walks that phase gave the
+kernel (its tuned beam: the grouped walk fused and split, the single
+query's; the widest walk that took the block variant) and the variant and
+mode each walk took.
 Each case prints its time beside its
 bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
@@ -95,6 +100,7 @@ is a JSON object with "ok": true.
 """
 from __future__ import annotations
 
+import ctypes
 import http.client
 import json
 import os
@@ -238,7 +244,8 @@ def read_counts() -> dict:
             "gather_by_row_bytes": dict(gather.launches_by_row_bytes),
             "csr_ip": sparse.launches,
             "csr_ip_by_variant": dict(sparse.launches_by_variant),
-            "beam_iter": beam.launches}
+            "beam_iter": beam.launches,
+            "beam_iter_by_plan": dict(beam.launches_by_plan)}
 
 
 def check_wires(dev: torch.device) -> dict:
@@ -359,7 +366,7 @@ def device_profile(fn, n_queries: int) -> dict:
             gather_us += us
         if "csr_ip_kernel" in ev.key:
             csr_us += us
-        if "beam_iter_kernel" in ev.key:
+        if "beam_warp_kernel" in ev.key or "beam_block_kernel" in ev.key:
             beam_us += us
     for ev in prof.key_averages(group_by_input_shape=True):
         if ev.device_type != DeviceType.CUDA and dev_us(ev) > 0:
@@ -602,58 +609,29 @@ def beam_case(dev: torch.device, b: int, fused: bool, seed: int,
     return kw
 
 
-def walk_bytes(kw: dict) -> int:
-    """Bytes the walk from kw's state must move, counted from its data:
-    it steps the plain version one iteration at a time and, for each that
-    ran (some query picked a valid entry), adds the valid picks' adjacency
-    rows and the rows of the candidates scored (the survivors: candidates
-    not padded, not in the beam, not repeated, not visited; at most cp on
-    the split path), each once (beam.beam_iter_cost), and the beam and
-    visited: for a batch (a launch an iteration) the beam read and written
-    and the visited ids read and written every iteration; for one query
-    (one launch) the beam read and written once and each visited id
-    written once."""
-    st = {k: v.clone() if isinstance(v, torch.Tensor) else v
-          for k, v in kw.items()}
-    b, L = st["beam_ids"].shape
-    M, R = st["expand"], st["adjacency"].shape[1]
-    C, d = M * R, st["q"].shape[1]
-    cp = st["compact"] if 0 < st["compact"] < C else C
-    fused = st["fused"] is not None
-    row = d if fused else d * st["table"].element_size()
-    state = (st["beam_ids"], st["beam_exp"], st["beam_d"], st["visited"])
-    total = 0
-    for it in range(st["max_iters"]):
-        ids, exp, bd, vis = state
-        avail = ~exp & torch.isfinite(bd)
-        pick = beam._first_m(avail, M)
-        valid = torch.gather(avail, 1, pick)
-        if not bool(valid.any()):
-            break
-        pid = torch.gather(ids, 1, pick)
-        cand = beam.gather_rows(st["adjacency"], pid).reshape(b, C)
-        cand = torch.where(valid.repeat_interleave(R, dim=1), cand, -1)
-        vis_now = torch.cat([vis[:, :it * M], torch.where(valid, pid, -1)],
-                            dim=1)
-        first = torch.argmax((cand[:, :, None] == cand[:, None, :])
-                             .to(torch.uint8), dim=2)
-        good = ((cand >= 0) & (first == torch.arange(C, device=cand.device))
-                & ~(cand[:, :, None] == ids[:, None, :]).any(2)
-                & ~(cand[:, :, None] == vis_now[:, None, :]).any(2))
-        scored = good.sum(1)
-        if not fused and it > 0:  # iteration 0 runs uncompacted
-            scored = scored.clamp(max=cp)
-        total += beam.beam_iter_cost(0 if b == 1 else b, L,
-                                     b * (M if b == 1 else it * M + M),
-                                     int(valid.sum()), R, int(scored.sum()),
-                                     row)
-        state = beam._iteration(st["q"], st["q_norms"], st["table"],
-                                st["adjacency"], st["fused"], st["scale"],
-                                state, M, st["metric"], it,
-                                0 if it == 0 else cp)
-    if b == 1:  # one launch: the beam once
-        total += beam.beam_iter_cost(1, L, 0, 0, R, 0, row)
-    return total
+def beam_resources(dev: torch.device, kw: dict) -> dict:
+    """Each variant's registers and stack bytes a thread, shared memory a
+    block and resident queries a multiprocessor at kw's shape
+    (csrc/beam_iter.cu's vdb_beam_iter_attrs: cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = beam.kernel_library()
+    b, L = kw["beam_ids"].shape
+    out = {}
+    for i, variant in enumerate(beam.VARIANTS):
+        got = (ctypes.c_int * 7)()
+        with torch.cuda.device(dev):
+            rc = lib.vdb_beam_iter_attrs(
+                i, int(kw["table"].dtype == torch.bfloat16),
+                int(kw["fused"] is not None), L, kw["q"].shape[1],
+                kw["expand"], kw["adjacency"].shape[1],
+                kw["visited"].shape[1], got)
+        if rc == 0:
+            out[variant] = {
+                "registers": got[0], "stack_bytes": got[1],
+                "static_smem": got[2], "smem_a_block": got[6],
+                "threads_a_block": got[4], "queries_a_block": got[5],
+                "resident_queries_per_sm": got[3] * got[5]}
+    return out
 
 
 def check_beam(dev: torch.device, walks=None, tag: str = "") -> dict:
@@ -661,68 +639,90 @@ def check_beam(dev: torch.device, walks=None, tag: str = "") -> dict:
     for bit, over walks on BEAM_N rows (beam_case): by default BEAM_WALK
     for a batch of GRAPH_BATCH queries and for one query, split and fused;
     else each (b, fused, walk) of `walks` (a main path's walks, as
-    record_walks saw them); the state after the walk equal in every bit.
-    Times the walk (one launch an iteration for a batch, one launch for a
-    single query) in turns with the plain version's, each from its own copy
-    of the start state; bound from walk_bytes at the HBM rate (the f32 FMAs
-    of the scores, 4 a candidate element, are below 3.6 per byte). No
-    PyTorch call computes a traversal: no library time."""
+    record_walks saw them); the state after the walk equal in every bit, in
+    every variant and mode the kernel can run it in (beam.walk_plans). Logs each
+    variant's resources at the shape (beam_resources) on a line of its own,
+    then times every plan's walk in turns with the plain version's, each
+    from its own copy of the start state; bound from beam.walk_bytes at the
+    HBM rate (the f32 FMAs of the scores, 4 a candidate element, are below
+    3.6 per byte). "ms" is the plan traverse picks itself. No PyTorch call
+    computes a traversal: no library time."""
     if walks is None:
         walks = [(b, fused, BEAM_WALK) for b, fused in (
             (GRAPH_BATCH, False), (GRAPH_BATCH, True), (1, False),
             (1, True))]
     out = {}
+    state = ("beam_ids", "beam_exp", "beam_d", "visited")
     for b, fused, walk in walks:
-        name = f"{tag}{'fused' if fused else 'split'}_b{b}"
+        name = (f"{tag}{'fused' if fused else 'split'}_b{b}_"
+                f"L{walk['beam_width']}")
         kw = beam_case(dev, b, fused, seed=7 + b + fused, walk=walk)
-        state = ("beam_ids", "beam_exp", "beam_d", "visited")
-        runs = {}
-        for how, fn in (("kernel", beam.traverse),
-                        ("plain", _plain_traverse)):
-            one = {k: kw[k].clone() if k in state else v
-                   for k, v in kw.items()}
-            fn(**one)
-            runs[how] = one
-        torch.cuda.synchronize()
-        for k in state:
-            a, p = runs["kernel"][k], runs["plain"][k]
-            if a.dtype == torch.float32:
-                a, p = a.view(torch.int32), p.view(torch.int32)
-            if not torch.equal(a, p):
-                raise AssertionError(f"beam_iter {name}: {k} differs from "
-                                     "the plain version")
-        err = float((runs["kernel"]["beam_d"] - runs["plain"]["beam_d"])
-                    .nan_to_num(posinf=0.0).abs().max())
-        nbytes = walk_bytes(kw)
-        inner = {"ms": 10, "plain_ms": 2}
-        copies = {how: [{k: kw[k].clone() if k in state else v
-                         for k, v in kw.items()}
-                        for _ in range(7 * inner[how])]
-                  for how in inner}
+        res = beam_resources(dev, kw)
+        log(f"beam_iter resources {name}: " + json.dumps(res))
+        L = walk["beam_width"]
+        default = beam._plan(b, L, kw["expand"], kw["adjacency"].shape[1],
+                             kw["q"].shape[1], kw["table"].dtype, fused,
+                             kw["visited"].shape[1], dev)
+        plans = {"/".join(p): p for p in beam.walk_plans(
+            b, L, kw["expand"], kw["adjacency"].shape[1], kw["q"].shape[1],
+            kw["table"].dtype, fused, kw["visited"].shape[1], dev)}
 
-        fns = {"ms": beam.traverse, "plain_ms": _plain_traverse}
-        got = {how: [] for how in inner}
+        def copy():
+            return {k: kw[k].clone() if k in state else v
+                    for k, v in kw.items()}
+
+        plain = copy()
+        _plain_traverse(**plain)
+        err = 0.0
+        for key, plan in plans.items():
+            one = copy()
+            beam.traverse(**one, plan=plan)
+            torch.cuda.synchronize()
+            for k in state:
+                x, p = one[k], plain[k]
+                if x.dtype == torch.float32:
+                    x, p = x.view(torch.int32), p.view(torch.int32)
+                if not torch.equal(x, p):
+                    raise AssertionError(f"beam_iter {name} ({key}): {k} "
+                                         "differs from the plain version")
+            err = max(err, float((one["beam_d"] - plain["beam_d"])
+                                 .nan_to_num(posinf=0.0).abs().max()))
+        nbytes = beam.walk_bytes(**kw)
+        fns = {"plain_ms": _plain_traverse,
+               **{key: (lambda p: lambda **a: beam.traverse(**a, plan=p))(p)
+                  for key, p in plans.items()}}
+        inner = {how: 2 if how == "plain_ms" else 10 for how in fns}
+        copies = {how: [copy() for _ in range(7 * inner[how])]
+                  for how in fns}
+        got = {how: [] for how in fns}
         for _ in range(7):  # in turns, each walk from its own copy
             for how, pool in copies.items():
                 got[how].append(stream_ms(lambda: fns[how](**pool.pop()),
                                           inner[how]))
         t = {how: statistics.median(v) for how, v in got.items()}
         bound, bound_by = partial_min.bound_ms(0, nbytes)
-        out[name] = {**t, "bound_ms": bound, "bound_by": bound_by,
-                     "pct_of_bound": 100.0 * bound / t["ms"],
+        picked = "/".join(default)
+        out[name] = {"ms": t[picked], "plan": picked,
+                     "plain_ms": t["plain_ms"], "bound_ms": bound,
+                     "bound_by": bound_by,
+                     "pct_of_bound": 100.0 * bound / t[picked],
+                     "plans": {key: {"ms": t[key],
+                                     "pct_of_bound": 100.0 * bound / t[key]}
+                               for key in plans},
                      "max_abs_err": err, "bitwise_equal": True,
                      "queries": b, **walk, "bytes": nbytes,
-                     "walked": int((runs["kernel"]["visited"] >= 0).sum()),
-                     "library_ms": None}
+                     "walked": int((plain["visited"] >= 0).sum()),
+                     "resources": res, "library_ms": None}
         log(f"kernel beam_iter {name}: " + json.dumps(out[name]))
-        del kw, runs, copies
+        del kw, plain, copies
         torch.cuda.empty_cache()
     return out
 
 
 class record_walks:
     """While open, the shape of every traversal walk (beam.traverse) of the
-    main path: (queries, fused, walk as BEAM_WALK's keys), each once."""
+    main path: (queries, fused, walk as BEAM_WALK's keys and "took", the
+    variant / mode launches it made), each once."""
 
     def __enter__(self):
         self.walks = []
@@ -736,11 +736,14 @@ class record_walks:
                     "term_width": term_width, "compact": compact,
                     "expand": expand, "degree": adjacency.shape[1],
                     "seeds": int(torch.isfinite(beam_d[0]).sum())}
-            if (b, fused is not None, walk) not in self.walks:
-                self.walks.append((b, fused is not None, walk))
+            before = dict(beam.launches_by_plan)
             real(q, q_norms, table, adjacency, fused, scale, beam_ids,
                  beam_exp, beam_d, visited, metric, expand, max_iters,
                  term_width, compact)
+            walk["took"] = sorted(k for k, n in beam.launches_by_plan.items()
+                                  if n > before.get(k, 0))
+            if (b, fused is not None, walk) not in self.walks:
+                self.walks.append((b, fused is not None, walk))
 
         beam.traverse = traverse
         return self
@@ -750,10 +753,10 @@ class record_walks:
 
 
 def _plain_traverse(**kw) -> None:
-    """beam.traverse with beam_iteration_ref (same arguments) in place of
-    the kernel."""
+    """beam.traverse with beam_iteration_ref (the same arguments but the
+    kernel variant) in place of the kernel."""
     real = beam.beam_iter
-    beam.beam_iter = beam.beam_iteration_ref
+    beam.beam_iter = lambda *a: beam.beam_iteration_ref(*a[:-1])
     try:
         beam.traverse(**kw)
     finally:
@@ -1084,9 +1087,10 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
         # Grouped queries with a device filter (about half the rows): the
         # grouped graph program with a widened beam.
         assert vdb.update_config({"FusedTraversal": "auto"}) == 0
-        out["filtered"] = grouped_filtered(
-            table, "cat < 5", queries, valid, batch, x, keep_cat, want_cat,
-            WIDENED_RECALL_FLOOR)
+        with record_walks() as rec_filtered:
+            out["filtered"] = grouped_filtered(
+                table, "cat < 5", queries, valid, batch, x, keep_cat,
+                want_cat, WIDENED_RECALL_FLOOR)
         if out["filtered"]["counts"]["gather"] <= 0:
             raise AssertionError("filtered grouped graph pass never "
                                  "launched the gather kernel")
@@ -1130,9 +1134,22 @@ def run_graph(dev: torch.device, n: int, dim: int, n_q: int, batch: int):
             log(f"graph grouped QueryDtype={w}: {json.dumps(r)}")
         log(f"graph wire tuning: {json.dumps(out['wire_tune'])}")
 
-        out["rest"], x_new = run_rest(table, x, queries, cat, price,
-                                      rest_wants)
+        with record_walks() as rec_rest:
+            out["rest"], x_new = run_rest(table, x, queries, cat, price,
+                                          rest_wants)
         log(f"rest: {json.dumps(out['rest'])}")
+        # Which variant and mode every recorded walk took, and the widest
+        # batch of the widest walk that took the block variant (filtered
+        # beams widened past the warp variant's limit).
+        seen = rec_filtered.walks + rec_rest.walks
+        out["walks_took"] = [
+            {"queries": b, "fused": f, **w}
+            for b, f, w in out["walks"] + seen]
+        block = [w for w in seen
+                 if any(t.startswith("block/") for t in w[2]["took"])]
+        out["walk_block"] = max(
+            block, key=lambda w: (w[2]["beam_width"], w[0]), default=None)
+        log(f"graph walks: {json.dumps(out['walks_took'])}")
         out["cli"] = run_cli(tmp, table, np.concatenate([x, x_new]),
                              np.concatenate([price,
                                              np.arange(len(x_new)) % 100]))
@@ -2291,7 +2308,9 @@ def main() -> int:
     log(f"graph: {json.dumps(gr)}")
     # The kernel again at the walks the 1M graph's main path gave it (its
     # tuned beam), each held to the plain version and timed.
-    beam_cases.update(check_beam(dev, gr["walks"], tag="main_"))
+    beam_cases.update(check_beam(
+        dev, gr["walks"] + ([gr["walk_block"]] if gr["walk_block"] else []),
+        tag="main_"))
     t0 = time.perf_counter()
     sp = run_sparse(dev)
     sp["phase_s"] = time.perf_counter() - t0
@@ -2356,8 +2375,39 @@ def main() -> int:
     main_pm = pm_cases["l2_mask_nvalid"]
     csr = sp["csr_ip"]
     trav = gather_cases["bf16_store"]
-    b_auto, fused_auto, walk_auto = gr["walk_auto"]
-    walk = beam_cases[f"main_{'fused' if fused_auto else 'split'}_b{b_auto}"]
+
+    def walk_case(w):
+        b, fused, wk = w
+        return beam_cases[f"main_{'fused' if fused else 'split'}_b{b}_"
+                          f"L{wk['beam_width']}"]
+
+    walk = walk_case(gr["walk_auto"])
+    by_plan = {}
+    for c in phases.values():
+        for k, n in c["beam_iter_by_plan"].items():
+            by_plan[k] = by_plan.get(k, 0) + n
+    # Each variant's row: its time at the main path's walk it serves (the
+    # grouped walk for the warp variant, the widest block walk recorded for
+    # the block variant, else the grouped walk run by the block variant).
+    rows = {}
+    for variant, case in (("warp", walk), ("block", walk_case(
+            gr["walk_block"]) if gr["walk_block"] else walk)):
+        keys = [k for k in case["plans"] if k.startswith(variant + "/")]
+        key = (case["plan"] if case["plan"] in keys
+               else min(keys, key=lambda k: case["plans"][k]["ms"]))
+        rows[variant] = {
+            "plan": key, "ms": case["plans"][key]["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "pct_of_bound": case["plans"][key]["pct_of_bound"],
+            "max_abs_err": case["max_abs_err"],
+            "launches": sum(n for k, n in by_plan.items()
+                            if k.startswith(variant + "/")),
+            "unit": f"{case['max_iters']} iterations of {case['queries']} "
+                    f"queries, L {case['beam_width']}"}
+        if rows[variant]["launches"] <= 0:
+            raise AssertionError(f"beam_iter's {variant} variant never "
+                                 "launched on the main path")
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "pct_of_bound",
             "gemm_ms", "max_abs_err")
     print(json.dumps({"kernels": [
@@ -2403,22 +2453,15 @@ def main() -> int:
          "three_pass_ms": csr["three_pass_ms"],
          "l2_variant_ms": csr["l2_variant_ms"],
          "large_scatter": csr["large_scatter"]},
-        {"name": "beam_iter", "route": "cuda",
-         "source": "vectordb_tpu_torch/csrc/beam_iter.cu",
-         "binding": "vectordb_tpu_torch/csrc/beam_iter_op.cpp",
-         "replaces": "vectordb_tpu/ops/beam.py:98",
-         "replaces_kind": "jitted XLA program, not a Pallas kernel",
-         "launches": sum(c["beam_iter"] for c in phases.values()),
-         "max_abs_err": max(c["max_abs_err"] for c in beam_cases.values()),
-         "ms": walk["ms"], "plain_ms": walk["plain_ms"],
-         "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
-         "library_ms": None, "library": "none computes it",
-         "pct_of_bound": walk["pct_of_bound"],
-         "unit": f"the 1M graph's grouped walk (FusedTraversal auto): "
-                 f"{walk_auto['max_iters']} iterations of {b_auto} queries, "
-                 f"{'fused' if fused_auto else 'split'}, L "
-                 f"{walk_auto['beam_width']}",
-         "cases": beam_cases}]}), flush=True)
+        *({"name": f"beam_iter_{variant}", "route": "cuda",
+           "source": "vectordb_tpu_torch/csrc/beam_iter.cu",
+           "binding": "vectordb_tpu_torch/csrc/beam_iter_op.cpp",
+           "replaces": "vectordb_tpu/ops/beam.py:98",
+           "replaces_kind": "jitted XLA program, not a Pallas kernel",
+           **row, "library_ms": None, "library": "none computes it",
+           **({"launches_by_plan": by_plan, "cases": beam_cases}
+              if variant == "warp" else {})}
+          for variant, row in rows.items())]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -216,15 +216,21 @@ def test_beam_iter_rejects_what_the_kernel_does_not_take():
     args = [kw["q"], kw["q_norms"], kw["table"], kw["adjacency"], None, None,
             *state]
 
-    def call(*a, expand=4, it=(0, 1)):
-        tbeam.beam_iter(*a, flags, expand, 1, it[0], it[1], 40, 16, False)
+    def call(*a, expand=4, it=(0, 1), variant="block"):
+        tbeam.beam_iter(*a, flags, expand, 1, it[0], it[1], 40, 16, False,
+                        variant)
 
     with pytest.raises(TypeError):
         call(kw["q"].float(), *args[1:])
     with pytest.raises(TypeError):
         call(*args[:6], state[0].long(), *state[1:])
     with pytest.raises(ValueError):
-        call(*args, it=(0, 2))  # a batch runs one iteration a call
+        call(*args, variant="thread")  # no such kernel
+    wide = [*args[:6], *(torch.cat([t] * 5, dim=1) for t in state[:3]),
+            state[3]]
+    call(*wide, variant="block")
+    with pytest.raises(ValueError):
+        call(*wide, variant="warp")  # L 80 past the warp variant's 64
     with pytest.raises(ValueError):
         call(*args, it=(4, 5))  # past visited
     with pytest.raises(ValueError):
@@ -238,6 +244,115 @@ def test_beam_iter_cost_counts_each_byte_once():
     cost = tbeam.beam_iter_cost(b, 64, 16 * b, 4 * b, 48, 96 * b, 256)
     assert cost == b * (2 * 9 * 64 + 4 * 16 + 4 * 4 * 48 + 96 * 256)
     assert 26_000 < cost / b < 28_000
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("b,L,m,r,d,dtype,fused,vis,resident,want", [
+    # the 1M main path's walks: L 18 x 4, 2,048 queries and one
+    (2048, 18, 4, 48, 128, BF16, True, 16, {"warp": 32, "block": 4},
+     ("warp", "walk")),
+    (1, 18, 4, 48, 128, BF16, False, 16, {"warp": 32, "block": 4},
+     ("block", "walk")),
+    # a query for each multiprocessor at most: the block variant
+    (132, 18, 4, 48, 128, BF16, True, 16, {"warp": 32, "block": 2},
+     ("block", "walk")),
+    (133, 18, 4, 48, 128, BF16, True, 16, {"warp": 32, "block": 2},
+     ("warp", "walk")),
+    # L at the warp variant's limit and one past it
+    (2048, 64, 4, 48, 128, BF16, True, 64, {"warp": 32, "block": 4},
+     ("warp", "walk")),
+    (2048, 65, 4, 48, 128, BF16, True, 64, {"warp": 32, "block": 4},
+     ("block", "iteration")),
+    # a batch the card cannot hold at once: one launch an iteration
+    (4225, 18, 4, 48, 128, BF16, True, 16, {"warp": 32, "block": 4},
+     ("warp", "iteration")),
+    (4224, 18, 4, 48, 128, BF16, True, 16, {"warp": 32, "block": 4},
+     ("warp", "walk")),
+    # a wide filtered beam: the block variant, resident or not
+    (1, 16000, 4, 48, 128, BF16, False, 64, {"block": 1},
+     ("block", "walk")),
+    (16, 1024, 4, 48, 128, BF16, False, 4096, {"block": 2},
+     ("block", "walk")),
+    (600, 1024, 4, 48, 128, BF16, False, 4096, {"block": 2},
+     ("block", "iteration")),
+    # C = M * R past 256, rows past 32 chunks, visited past 1,024
+    (200, 18, 4, 65, 128, BF16, False, 16, {"block": 2},
+     ("block", "walk")),
+    (200, 18, 4, 48, 512, BF16, False, 16, {"block": 2},
+     ("block", "walk")),
+    (200, 18, 4, 48, 512, BF16, True, 16, {"warp": 8, "block": 2},
+     ("warp", "walk")),
+    (200, 18, 4, 48, 256, F32, False, 16, {"block": 2},
+     ("block", "walk")),
+    (200, 18, 4, 48, 16, F32, False, 1025, {"block": 2},
+     ("block", "walk")),
+    # no occupancy known (as on the CPU): a batch an iteration a call
+    (7, 18, 4, 48, 128, BF16, False, 16, {}, ("block", "iteration")),
+    (700, 18, 4, 48, 128, BF16, False, 16, {}, ("warp", "iteration")),
+])
+def test_walk_plan_choices(b, L, m, r, d, dtype, fused, vis, resident,
+                           want):
+    plan = tbeam.walk_plan(b, L, m, r, d, dtype, fused, vis, resident, 132)
+    assert plan == tbeam.WalkPlan(*want)
+
+
+def test_walk_bytes_counts_the_beam_and_visited_once():
+    """One query, L 8, M 1, R 2, one iteration: the beam read and written
+    once, one visited id, one adjacency row, the two candidates' rows, the
+    query and its norm; a batch of two such queries, twice that; a walk
+    that cannot start, the beam and the queries alone."""
+    d = 16
+    x = torch.arange(10 * d, dtype=torch.float32).reshape(10, d).bfloat16()
+    adj = torch.tensor([[1, 2]] + [[0, 0]] * 9, dtype=torch.int32)
+    q = torch.zeros((2, d), dtype=torch.bfloat16)
+    ids = torch.tensor([[0] + [-1] * 7] * 2, dtype=torch.int32)
+    bd = torch.tensor([[0.0] + [_INF] * 7] * 2)
+    kw = dict(q=q, q_norms=torch.zeros(2), table=x, adjacency=adj,
+              fused=None, scale=None, beam_ids=ids,
+              beam_exp=torch.zeros((2, 8), dtype=torch.bool), beam_d=bd,
+              visited=torch.full((2, 1), -1, dtype=torch.int32),
+              metric=int(MetricType.EUCLIDEAN), expand=1, max_iters=1)
+    one = 2 * 9 * 8 + 4 + 4 * 2 + 2 * d * 2 + d * 2 + 4
+    one_q = {k: v[:1] if isinstance(v, torch.Tensor) and v.shape[0] == 2
+             else v for k, v in kw.items()}
+    assert tbeam.walk_bytes(**one_q) == one
+    assert tbeam.walk_bytes(**kw) == 2 * one
+    kw["beam_exp"] = torch.ones((2, 8), dtype=torch.bool)
+    assert tbeam.walk_bytes(**kw) == 2 * (2 * 9 * 8 + d * 2 + 4)
+    assert torch.equal(kw["beam_ids"], ids)  # the state is left as it is
+
+
+@pytest.mark.parametrize("path,iters", [("split", 16), ("fused", 16),
+                                        ("split", 40)])
+def test_walk_in_one_call_equals_a_call_an_iteration(monkeypatch, path,
+                                                     iters):
+    """A batch's whole walk in one beam_iter call (the flag read after
+    every iteration, as the cooperative launch does) equals one call an
+    iteration and the earlier loop, also past UNROLL_MAX_ITERS."""
+    kw, state = _case(4, 600, 32, 48, 12, 32, MetricType.COSINE,
+                      path == "fused", iters, integer=True)
+    calls = []
+    real = tbeam.beam_iteration_ref
+    monkeypatch.setattr(tbeam, "beam_iteration_ref",
+                        lambda *a: calls.append(a[-5:-3]) or real(*a))
+    runs = {}
+    for mode in ("walk", "iteration"):
+        new = tuple(t.clone() for t in state)
+        tbeam.traverse(**kw, beam_ids=new[0], beam_exp=new[1],
+                       beam_d=new[2], visited=new[3],
+                       metric=int(MetricType.COSINE), expand=4,
+                       max_iters=iters, term_width=4, compact=40,
+                       plan=tbeam.WalkPlan("warp", mode))
+        runs[mode] = new
+    assert calls[0] == (0, iters) and len(calls) > 2
+    _assert_same(runs["walk"], runs["iteration"])
+    old = _earlier_walk(**kw, state=state, metric=int(MetricType.COSINE),
+                        M=4, max_iters=iters, tw=4, cp_all=40)
+    _assert_same(runs["walk"], old)
+    walked = (runs["walk"][3] >= 0).sum(1)
+    assert 4 < int(walked.max()) < 4 * iters  # it stopped early
 
 
 def _graph(metric, seed):

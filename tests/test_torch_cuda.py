@@ -1032,34 +1032,61 @@ def _walk_case(seed, n, d, r, b, L, metric, fused, max_iters, tw=0,
     return kw
 
 
-def _walk_both(kw, dev):
-    """beam.traverse from the same state: the plain version on the CPU, the
-    kernel on `dev`. Asserts the state equal bit for bit; returns the CPU
-    state and the kernel's launches."""
-    on_dev = {k: v.to(dev, copy=True) if isinstance(v, torch.Tensor) else v
-              for k, v in kw.items()}
-    before = beam.launches
-    beam.traverse(**on_dev)
-    torch.cuda.synchronize()
-    launched = beam.launches - before
+def _plans(kw, dev):
+    """Every (variant, mode) the kernel can walk kw's batch in on dev."""
+    b, L = kw["beam_ids"].shape
+    return beam.walk_plans(b, L, kw["expand"], kw["adjacency"].shape[1],
+                           kw["q"].shape[1], kw["table"].dtype,
+                           kw["fused"] is not None, kw["visited"].shape[1],
+                           dev)
+
+
+def _walk_both(kw, dev, plans=None):
+    """beam.traverse from the same state: the plain version on the CPU (in
+    place on kw), the kernel on `dev` in every plan of `plans` (default:
+    all the kernel can run, _plans). Asserts each state equal bit for bit;
+    returns the CPU state and {plan: the kernel's launches}."""
+    start = {k: v.to(dev, copy=True) if isinstance(v, torch.Tensor) else v
+             for k, v in kw.items()}
     beam.traverse(**kw)
-    for name in ("beam_ids", "beam_exp", "visited"):
-        assert torch.equal(on_dev[name].cpu(), kw[name]), name
-    assert torch.equal(on_dev["beam_d"].cpu().view(torch.int32),
-                       kw["beam_d"].view(torch.int32))
+    launched = {}
+    for plan in plans or _plans(kw, dev):
+        on_dev = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                  for k, v in start.items()}
+        before = beam.launches
+        beam.traverse(**on_dev, plan=plan)
+        torch.cuda.synchronize()
+        launched[plan] = beam.launches - before
+        for name in ("beam_ids", "beam_exp", "visited"):
+            assert torch.equal(on_dev[name].cpu(), kw[name]), (plan, name)
+        assert torch.equal(on_dev["beam_d"].cpu().view(torch.int32),
+                           kw["beam_d"].view(torch.int32)), plan
     return kw, launched
+
+
+def _launches_ok(launched, iters, walked_iters=None):
+    """A walk launches once; a walk an iteration at a time at most once an
+    iteration and, to `walked_iters` iterations, at least that often."""
+    for plan, n in launched.items():
+        if plan.mode == "walk":
+            assert n == 1, (plan, n)
+        else:
+            assert n <= iters and n >= (walked_iters or 1), (plan, n)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("path", ["split96", "split0", "fused"])
 def test_beam_kernel_equals_plain_version(cuda_device, metric, path):
-    """A batch of 64 walks, L 64, R 48, up to 16 iterations."""
+    """A batch of 64 walks, L 64, R 48, up to 16 iterations (split96 peels
+    iteration 0), in every variant and mode."""
     kw = _walk_case(1, 4096, 128, 48, 64, 64, metric, path == "fused", 16)
     if path == "split0":
         kw["compact"] = 0
     state, launched = _walk_both(kw, cuda_device)
-    assert launched == 16
+    assert {p.variant for p in launched} == {"warp", "block"}
+    assert {p.mode for p in launched} == {"walk", "iteration"}
+    _launches_ok(launched, 16, 16)
     assert int((state["visited"] >= 0).sum()) > 64 * 16
 
 
@@ -1071,7 +1098,62 @@ def test_beam_kernel_full_batch(cuda_device, fused):
     kw = _walk_case(6, 4096, 128, 48, 2048, 64, MetricType.EUCLIDEAN, fused,
                     16)
     _, launched = _walk_both(kw, cuda_device)
-    assert launched == 16
+    _launches_ok(launched, 16, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 7, 2048])
+@pytest.mark.parametrize("fused", [False, True])
+def test_beam_kernel_main_path_walk(cuda_device, b, fused):
+    """The 1M graph's tuned walk: L 18, 4 iterations, tw 12, 18 seeds; one
+    query, 7 (not a multiple of the warp variant's 4 queries a block) and
+    2,048; each walks it in one launch, 2,048 in the warp variant."""
+    kw = _walk_case(9, 4096, 128, 48, b, 18, MetricType.EUCLIDEAN, fused, 4,
+                    tw=12, n_seed=18)
+    plan = beam._plan(b, 18, 4, 48, 128, torch.bfloat16, fused, 16,
+                      cuda_device)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert plan == beam.WalkPlan("warp" if b > sms else "block", "walk")
+    _, launched = _walk_both(kw, cuda_device)
+    assert launched[plan] == 1
+    _launches_ok(launched, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [64, 65])
+@pytest.mark.parametrize("metric", METRICS)
+def test_beam_kernel_at_the_warp_variants_limit(cuda_device, L, metric):
+    """L 64, the widest beam the warp variant takes, and 65, which only
+    the block variant takes; 7 queries, 20 iterations, fused."""
+    kw = _walk_case(10, 3000, 64, 48, 7, L, metric, True, 20)
+    _, launched = _walk_both(kw, cuda_device)
+    want = {"warp", "block"} if L == 64 else {"block"}
+    assert {p.variant for p in launched} == want
+    _launches_ok(launched, 20)
+
+
+@pytest.mark.gpu
+def test_beam_kernel_batch_too_large_to_walk_in_one_launch(cuda_device):
+    """One query more than the card holds at once in the warp variant: the
+    plan launches an iteration at a time, and a forced walk in one
+    (cooperative) launch is refused with its CUDA error, never run on the
+    plain version."""
+    resident = beam.resident_per_sm(cuda_device, "warp", torch.bfloat16,
+                                    False, 18, 32, 4, 16, 20)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    b = resident * sms + 1
+    kw = _walk_case(11, 2000, 32, 16, b, 18, MetricType.EUCLIDEAN, False, 5,
+                    tw=12, n_seed=18)
+    plan = beam._plan(b, 18, 4, 16, 32, torch.bfloat16, False, 20,
+                      cuda_device)
+    assert plan == beam.WalkPlan("warp", "iteration")
+    _walk_both(kw, cuda_device, [plan])
+    on_dev = {k: v.to(cuda_device, copy=True) if isinstance(v, torch.Tensor)
+              else v for k, v in kw.items()}
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        beam.traverse(**on_dev, plan=beam.WalkPlan("warp", "walk"))
 
 
 @pytest.mark.gpu
@@ -1082,13 +1164,15 @@ def test_beam_kernel_full_batch(cuda_device, fused):
                                          (1024, 48, 2, False),
                                          (1024, 16, 2, True)])
 def test_beam_kernel_widths_and_deep_walks(cuda_device, L, r, b, fused):
-    """Beams of 16 to 1,024 entries walked to full depth (max_iters = L, the
-    host asking the device flag every few launches), R 16 and 48; rows
-    that fell off a short beam come back as candidates."""
+    """Beams of 16 to 1,024 entries walked to full depth (max_iters = L,
+    past UNROLL_MAX_ITERS: one launch, or the host asking the device flag
+    every few launches), R 16 and 48; rows that fell off a short beam come
+    back as candidates."""
     kw = _walk_case(2, 3000, 32, r, b, L, MetricType.EUCLIDEAN, fused, L)
     state, launched = _walk_both(kw, cuda_device)
     walked = int((state["visited"][0] >= 0).sum())
-    assert walked > L // 4 and launched >= walked // 4
+    assert walked > L // 4
+    _launches_ok(launched, L, walked // 4)
 
 
 @pytest.mark.gpu
@@ -1102,7 +1186,8 @@ def test_beam_kernel_beam_past_48kb_of_shared_memory(cuda_device, fused,
                     n_seed=3000)
     kw["compact"] = cp
     state, launched = _walk_both(kw, cuda_device)
-    assert launched >= 10 and int((state["visited"] >= 0).sum()) > 3 * 40
+    _launches_ok(launched, 40, 10)
+    assert int((state["visited"] >= 0).sum()) > 3 * 40
 
 
 @pytest.mark.gpu
@@ -1112,16 +1197,16 @@ def test_beam_kernel_beam_past_the_shared_memory_limit(cuda_device, fused,
                                                        b, iters):
     """L 16,000 (SearchEf 1,000 under the filter boost of 16): the double-
     buffered beam passes the card's 227 KB of shared memory a block, so it
-    stays in global memory with a scratch copy; a batch a launch an
-    iteration, one query in one launch (an odd and an even count of merges,
-    so the last lands in either buffer)."""
+    stays in global memory with a scratch copy; a batch in one cooperative
+    launch and a launch an iteration, one query in one launch (an odd and
+    an even count of merges, so the last lands in either buffer)."""
     kw = _walk_case(8, 20000, 32, 48, b, 16000, MetricType.EUCLIDEAN, fused,
                     iters, n_seed=12000)
     state, launched = _walk_both(kw, cuda_device)
-    assert launched == (1 if b == 1 else iters)
+    assert {p.variant for p in launched} == {"block"}
+    assert len(launched) == (1 if b == 1 else 2)
+    _launches_ok(launched, iters, iters)
     assert int((state["visited"] >= 0).sum()) == b * 4 * iters
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 3])
 def test_graph_query_with_a_beam_past_the_shared_memory_limit(
@@ -1180,7 +1265,9 @@ def test_beam_kernel_single_query_walks_in_one_launch(cuda_device, metric,
                                                       fused, L):
     kw = _walk_case(4, 3000, 32, 48, 1, L, metric, fused, L)
     state, launched = _walk_both(kw, cuda_device)
-    assert launched == 1
+    assert set(launched.values()) == {1}
+    assert {p.variant for p in launched} == (
+        {"warp", "block"} if L <= beam.WARP_MAX_L else {"block"})
     assert int((state["visited"] >= 0).sum()) > 4
 
 
@@ -1195,11 +1282,15 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda_device):
                             "visited")]
     call = lambda *a, **over: beam.beam_iter(
         *a, flags, over.get("expand", 4), 0, over.get("it_begin", 0),
-        over.get("it_end", 1), 96, 16, False)
+        over.get("it_end", 1), 96, 16, False, over.get("variant", "block"))
     with pytest.raises(TypeError):
         call(args[0].float(), *args[1:])
     with pytest.raises(ValueError):
-        call(*args, it_begin=0, it_end=2)  # a batch: one iteration a call
+        call(*args, variant="thread")  # no such kernel
+    wide = [*args[:6], *(torch.cat([t] * 5, dim=1) for t in args[6:9]),
+            args[9]]
+    with pytest.raises(ValueError):
+        call(*wide, variant="warp")  # L 80 past the warp variant's 64
     with pytest.raises(ValueError):
         call(*args, it_begin=4, it_end=5)  # past visited
     with pytest.raises(ValueError):

@@ -156,6 +156,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def operator_cdll(name: str) -> ctypes.CDLL:
+    """ctypes handle of the operator library `name` of OPERATORS (its
+    extern "C" functions), registered with torch.ops first."""
+    load_operator(name)
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(_registered[name])
+        return lib
+
+
 def load_operator(name: str) -> None:
     """Register the operators of library `name` of OPERATORS with torch.ops,
     built on first use. Raises RuntimeError naming nvcc's log when the

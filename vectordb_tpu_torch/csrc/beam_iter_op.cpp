@@ -1,6 +1,9 @@
 // PyTorch operator vdb::beam_iter for CUDA tensors: iterations [it_begin,
-// it_end) of the beam traversal, launched by csrc/beam_iter.cu, updating
-// the state (beam_ids, beam_exp, beam_d, visited, flags) in place.
+// it_end) of the beam traversal, launched by csrc/beam_iter.cu with kernel
+// `variant` (0: a block a query, 1: a warp a query), updating the state
+// (beam_ids, beam_exp, beam_d, visited, flags) in place. A batch that walks
+// more than one iteration is one cooperative launch; the card refuses it
+// (a RuntimeError naming the CUDA error) when the batch is not resident.
 //
 // It does in C++ what ops/beam.py's plain route checks in Python, with the
 // same errors (TypeError for a dtype, ValueError for the rest), so a launch
@@ -12,6 +15,7 @@
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
+#include <ATen/ops/zeros.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <c10/util/Exception.h>
@@ -27,8 +31,11 @@ extern "C" int vdb_beam_iter(const void* q, const float* q_norms,
                              long long n_fused, int b, int d, int l, int m,
                              int r, int v, int cp, int tw, int metric,
                              int it_begin, int it_end, int peel, int n_flags,
-                             int bf16, void* scratch, void* stream);
+                             int bf16, void* scratch, void* stream,
+                             int variant, int32_t* done);
 extern "C" long long vdb_beam_iter_scratch(int l, int d, int m, int r);
+extern "C" int vdb_beam_iter_takes(int variant, int bf16, int fused, int l,
+                                   int d, int m, int r, int v);
 
 namespace {
 
@@ -38,7 +45,7 @@ void beam_iter(const at::Tensor& q, const at::Tensor& q_norms,
                at::Tensor& beam_ids, at::Tensor& beam_exp, at::Tensor& beam_d,
                at::Tensor& visited, at::Tensor& flags, int64_t expand,
                int64_t metric, int64_t it_begin, int64_t it_end, int64_t cp,
-               int64_t tw, bool peel) {
+               int64_t tw, bool peel, int64_t variant) {
   const bool bf16 = table.scalar_type() == at::kBFloat16;
   TORCH_CHECK_TYPE(bf16 || table.scalar_type() == at::kFloat,
                    "beam_iter: table must be bfloat16 or float32, got ",
@@ -81,9 +88,6 @@ void beam_iter(const at::Tensor& q, const at::Tensor& q_norms,
                         it_end <= flags.size(0),
                     "beam_iter: iterations [", it_begin, ", ", it_end,
                     ") do not fit visited or flags");
-  TORCH_CHECK_VALUE(b == 1 || it_end <= it_begin + 1,
-                    "beam_iter: a batch of ", b,
-                    " queries runs one iteration a launch");
   TORCH_CHECK_VALUE(0 <= tw && tw <= l, "beam_iter: tw ", tw,
                     " outside [0, L]");
   const int8_t* fz = nullptr;
@@ -107,16 +111,30 @@ void beam_iter(const at::Tensor& q, const at::Tensor& q_norms,
     TORCH_CHECK_VALUE(t->device() == table.device(), "beam_iter: a tensor on ",
                       t->device(), ", the table on ", table.device());
   }
+  TORCH_CHECK_VALUE(
+      vdb_beam_iter_takes((int)variant, bf16 ? 1 : 0, fz ? 1 : 0, (int)l,
+                          (int)d, (int)expand, (int)r,
+                          (int)visited.size(1)) != 0,
+      "beam_iter: kernel variant ", variant, " does not take L ", l, ", D ",
+      d, ", expand ", expand, ", R ", r, ", visited ", visited.size(1));
   const c10::cuda::CUDAGuard guard(table.device());
-  // A beam too wide for shared memory is double-buffered in global memory:
-  // the state and this scratch copy.
-  const long long per_query = vdb_beam_iter_scratch(
-      (int)l, (int)d, (int)expand, (int)r);
+  // The block variant double-buffers a beam too wide for shared memory in
+  // global memory: the state and this scratch copy.
+  const long long per_query =
+      variant == 0 ? vdb_beam_iter_scratch((int)l, (int)d, (int)expand,
+                                           (int)r)
+                   : 0;
   TORCH_CHECK(per_query >= 0, "beam_iter: CUDA error ", -per_query,
               " reading the device's shared memory limit");
   at::Tensor scratch;
   if (per_query > 0) {
     scratch = at::empty({b * per_query}, table.options().dtype(at::kByte));
+  }
+  // The warp variant's walk of a batch counts its queries done with each
+  // iteration.
+  at::Tensor done;
+  if (variant == 1 && b > 1 && it_end > it_begin + 1) {
+    done = at::zeros({it_end - it_begin}, flags.options());
   }
   const int rc = vdb_beam_iter(
       q.const_data_ptr(), q_norms.const_data_ptr<float>(),
@@ -129,7 +147,8 @@ void beam_iter(const at::Tensor& q, const at::Tensor& q_norms,
       (int)metric, (int)it_begin, (int)it_end, peel ? 1 : 0,
       (int)flags.size(0), bf16 ? 1 : 0,
       per_query > 0 ? scratch.mutable_data_ptr() : nullptr,
-      c10::cuda::getCurrentCUDAStream(table.device().index()).stream());
+      c10::cuda::getCurrentCUDAStream(table.device().index()).stream(),
+      (int)variant, done.defined() ? done.mutable_data_ptr<int32_t>() : nullptr);
   TORCH_CHECK(rc == 0, "beam_iter kernel launch failed: CUDA error ", rc, " (",
               cudaGetErrorString(static_cast<cudaError_t>(rc)), ")");
 }
@@ -143,7 +162,7 @@ TORCH_LIBRARY_FRAGMENT(vdb, m) {
         "Tensor? fused, float scale, Tensor(a!) beam_ids, "
         "Tensor(b!) beam_exp, Tensor(c!) beam_d, Tensor(d!) visited, "
         "Tensor(e!) flags, int expand, int metric, int it_begin, int it_end, "
-        "int cp, int tw, bool peel) -> ()");
+        "int cp, int tw, bool peel, int variant=0) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(vdb, CUDA, m) { m.impl("beam_iter", &beam_iter); }

@@ -10,9 +10,11 @@ kept sorted by distance, advanced in lockstep:
             -> read the candidates' rows and score them against the query
             -> merge with the beam, stable sort by distance, keep L
 
-On CUDA tensors one iteration of the whole batch is one launch of the
-hand-written kernel csrc/beam_iter.cu (torch.ops.vdb.beam_iter, through
-beam_iter), and a single query's whole walk is one launch; on CPU tensors
+On CUDA tensors the walk runs in the hand-written kernel
+csrc/beam_iter.cu (torch.ops.vdb.beam_iter, through beam_iter): a warp a
+query for narrow beams, a block a query for wide ones (walk_plan), the
+whole walk in one launch where the batch is resident on the card (a
+cooperative launch), else one launch an iteration; on CPU tensors
 beam_iter runs beam_iteration_ref, its plain version (about 50 torch ops an
 iteration, the port's loop body before the kernel). The seed scan, the
 masked top-k and the re-rank stay torch ops, their row gathers on
@@ -37,10 +39,14 @@ Translation notes:
   - Seeding from >= 4,096 representatives uses exact `torch.topk` where the
     JAX package takes `approx_min_k` (exact on the CPU).
   - The stop rule is JAX's `cond` (no query of the batch has work). Each
-    iteration writes "some query has work" to a device flag that the next
-    iteration's launch reads first, a no-op when it is 0, so the loop never
-    waits for the device; a walk deeper than UNROLL_MAX_ITERS asks the host
-    every DEEP_CHECK_EVERY launches whether to go on.
+    iteration writes "some query has work" to a device flag. In a walk in
+    one launch a query with work goes on at once and one without waits on
+    the flag and a count of queries done (the warp variant), or every
+    block waits on a grid sync (the block variant); a launch of one
+    iteration reads the previous one's flag first, a no-op when it is 0,
+    so the loop never waits for the device, except that a walk deeper than
+    UNROLL_MAX_ITERS asks the host every DEEP_CHECK_EVERY launches whether
+    to go on.
   - The state (beam, flags, visited) is updated in place, one copy a
     traversal, where JAX's loop carries new arrays.
   - beam_search_grouped takes f32 queries and a query wire (ops/qwire):
@@ -50,7 +56,8 @@ Translation notes:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,14 +128,153 @@ def _first_m(avail: torch.Tensor, m: int) -> torch.Tensor:
 
 
 # Kernel launches since the last reset (CPU calls of the plain version are
-# not counted): a run reads it to show the traversal went through the
-# kernel.
+# not counted), in all and by "variant/mode" ("walk": a launch of more than
+# one iteration): a run reads them to show the traversal went through the
+# kernel, and which variant and mode each walk took.
 launches = 0
+launches_by_plan: dict = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_plan.clear()
+
+
+# The kernel's variants, by the operator's number, and the shapes the warp
+# variant (a warp a query) takes; the block variant (a block a query) takes
+# any.
+VARIANTS = ("block", "warp")
+WARP_MAX_L, WARP_MAX_M, WARP_MAX_C = 64, 32, 256
+WARP_MAX_CHUNKS, WARP_MAX_VISITED = 32, 1024
+
+
+class WalkPlan(NamedTuple):
+    """How traverse runs a walk on the card: the kernel variant ("warp" or
+    "block") and the mode ("walk": the whole walk in one launch,
+    cooperative for a batch of several blocks; "iteration": one launch an
+    iteration, each reading the previous one's flag)."""
+    variant: str
+    mode: str
+
+
+def warp_takes(beam_width: int, expand: int, degree: int, d: int,
+               dtype: torch.dtype, fused: bool, visited: int) -> bool:
+    """Whether the warp variant takes a walk's shape: L <= 64, M <= 32,
+    C = M * R <= 256, rows of at most 32 16-byte chunks (a lane each), at
+    most 1,024 visited ids (its state in shared memory)."""
+    chunks = d // (16 if fused else 16 // dtype.itemsize)
+    return (beam_width <= WARP_MAX_L and expand <= WARP_MAX_M
+            and expand * degree <= WARP_MAX_C and chunks <= WARP_MAX_CHUNKS
+            and visited <= WARP_MAX_VISITED)
+
+
+def walk_plan(b: int, beam_width: int, expand: int, degree: int, d: int,
+              dtype: torch.dtype, fused: bool, visited: int,
+              resident_per_sm: Mapping[str, int], sms: int) -> WalkPlan:
+    """The variant and mode of a walk of b queries: the warp variant where
+    it takes the shape (warp_takes) and the batch has more queries than the
+    card has multiprocessors (`sms`), else the block variant, whose eight
+    warps share one query's chain of loads (faster while each query can
+    have a multiprocessor: 0.065 vs 0.10 ms for one query's 1M walk on an
+    H100, PERF.md section 6); the whole walk in one
+    launch for one query and for a batch that the card holds at once (b <=
+    resident queries a multiprocessor of that variant x multiprocessors),
+    else one launch an iteration. resident_per_sm[v] is what the runtime
+    reports for variant v at this shape (0 where unknown, as on the
+    CPU)."""
+    variant = ("warp" if b > sms and warp_takes(
+        beam_width, expand, degree, d, dtype, fused, visited) else "block")
+    whole = b == 1 or b <= resident_per_sm.get(variant, 0) * sms
+    return WalkPlan(variant, "walk" if whole else "iteration")
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The operator library's C interface (csrc/beam_iter.cu), built and
+    registered on first use: vdb_beam_iter_resident (resident queries a
+    multiprocessor) and vdb_beam_iter_attrs (a kernel's registers, stack,
+    shared memory and occupancy at a shape)."""
+    from .. import _cuda_build
+
+    lib = _cuda_build.operator_cdll("beam_iter_op")
+    i = ctypes.c_int
+    lib.vdb_beam_iter_resident.argtypes = [i] * 8
+    lib.vdb_beam_iter_resident.restype = ctypes.c_longlong
+    lib.vdb_beam_iter_attrs.argtypes = [i] * 8 + [ctypes.POINTER(i)]
+    lib.vdb_beam_iter_attrs.restype = i
+    return lib
+
+
+_resident_cache: dict = {}
+
+
+def resident_per_sm(device: torch.device, variant: str, dtype: torch.dtype,
+                    fused: bool, beam_width: int, d: int, expand: int,
+                    degree: int, visited: int) -> int:
+    """Queries of a walk's shape that one multiprocessor of the card holds
+    at once with kernel `variant` (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    x queries a block, csrc/beam_iter.cu's vdb_beam_iter_resident); 0 where
+    the variant does not take the shape. Cached by shape."""
+    key = (device, variant, dtype, fused, beam_width, d, expand, degree,
+           visited)
+    got = _resident_cache.get(key)
+    if got is None:
+        with torch.cuda.device(device):
+            got = kernel_library().vdb_beam_iter_resident(
+                VARIANTS.index(variant), int(dtype == torch.bfloat16),
+                int(fused), beam_width, d, expand, degree, visited)
+        if got < 0 and got != -1:  # 1: cudaErrorInvalidValue, not taken
+            raise RuntimeError(f"beam_iter: CUDA error {-got} reading the "
+                               "card's occupancy")
+        got = _resident_cache[key] = max(int(got), 0)
+    return got
+
+
+_sms_cache: dict = {}
+
+
+def _occupancy(beam_width: int, expand: int, degree: int, d: int,
+               dtype: torch.dtype, fused: bool, visited: int,
+               device: torch.device):
+    """(resident queries a multiprocessor by variant that takes the shape,
+    multiprocessors) of the card; ({}, 0) on the CPU."""
+    if device.type != "cuda":
+        return {}, 0
+    sms = _sms_cache.get(device)
+    if sms is None:
+        sms = _sms_cache[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    shape = (dtype, fused, beam_width, d, expand, degree, visited)
+    return ({v: resident_per_sm(device, v, *shape) for v in VARIANTS
+             if v == "block" or warp_takes(beam_width, expand, degree, d,
+                                           dtype, fused, visited)}, sms)
+
+
+def _plan(b: int, beam_width: int, expand: int, degree: int, d: int,
+          dtype: torch.dtype, fused: bool, visited: int,
+          device: torch.device) -> WalkPlan:
+    """walk_plan with the card's occupancy and multiprocessors (none on the
+    CPU: a batch there runs an iteration a call)."""
+    shape = (beam_width, expand, degree, d, dtype, fused, visited)
+    return walk_plan(b, *shape, *_occupancy(*shape, device))
+
+
+def walk_plans(b: int, beam_width: int, expand: int, degree: int, d: int,
+               dtype: torch.dtype, fused: bool, visited: int,
+               device: torch.device) -> list:
+    """Every plan the kernel can run a walk of this shape in on the card
+    (walk_plan picks one): each variant that takes the shape; the whole
+    walk in one launch for one query or a batch the card holds at once,
+    and one launch an iteration for a batch."""
+    resident, sms = _occupancy(beam_width, expand, degree, d, dtype, fused,
+                               visited, device)
+    plans = []
+    for variant, per_sm in resident.items():
+        if b == 1 or b <= per_sm * sms:
+            plans.append(WalkPlan(variant, "walk"))
+        if b > 1:
+            plans.append(WalkPlan(variant, "iteration"))
+    return plans
 
 
 def beam_iter_cost(b: int, beam_width: int, visited: int, picks: int,
@@ -143,6 +289,58 @@ def beam_iter_cost(b: int, beam_width: int, visited: int, picks: int,
     (partial_min.bound_ms(0, bytes))."""
     return (2 * 9 * b * beam_width + 4 * visited + 4 * degree * picks
             + rows * row_bytes)
+
+
+def walk_bytes(q, q_norms, table, adjacency, fused, scale, beam_ids,
+               beam_exp, beam_d, visited, metric: int, expand: int,
+               max_iters: int, term_width: int = 0, compact: int = 0) -> int:
+    """Bytes that traverse's walk from this state must move, counted from
+    its data (beam_iter_cost's terms, each byte once): the queries and
+    their norms, the beam read once and written once, every visited id
+    written once, and, for each iteration the walk runs (JAX's stop rule,
+    the peel), the valid picks' adjacency rows and the rows of the
+    candidates it scores (not padded, not in the beam, not repeated, not
+    visited; at most cp on the split path after the peel). The same for a
+    batch as for one query, whatever the launches. Leaves the state as it
+    is."""
+    b, L = beam_ids.shape
+    M, R = expand, adjacency.shape[1]
+    C, d = M * R, q.shape[1]
+    cp = compact if 0 < compact < C else C
+    tw = min(term_width if term_width > 0 else L, L)
+    peel = fused is None and 0 < cp < C and max_iters > 0
+    row = d if fused is not None else d * table.element_size()
+    state = (beam_ids.clone(), beam_exp.clone(), beam_d.clone(),
+             visited.clone())
+    picks = rows = written = 0
+    for it in range(max_iters):
+        peeled = peel and it == 0
+        if not peeled and not bool(_has_work(state[1], state[2], tw)):
+            break
+        ids, exp, bd, vis = state
+        avail = ~exp & torch.isfinite(bd)
+        pick = _first_m(avail, M)
+        valid = torch.gather(avail, 1, pick)
+        pid = torch.gather(ids, 1, pick)
+        cand = gather_rows(adjacency, pid).reshape(b, C)
+        cand = torch.where(valid.repeat_interleave(R, dim=1), cand, -1)
+        vis_now = torch.cat([vis[:, :it * M], torch.where(valid, pid, -1)],
+                            dim=1)
+        first = torch.argmax((cand[:, :, None] == cand[:, None, :])
+                             .to(torch.uint8), dim=2)
+        good = ((cand >= 0) & (first == torch.arange(C, device=cand.device))
+                & ~(cand[:, :, None] == ids[:, None, :]).any(2)
+                & ~(cand[:, :, None] == vis_now[:, None, :]).any(2))
+        scored = good.sum(1)
+        if fused is None and not peeled:
+            scored = scored.clamp(max=cp)
+        picks += int(valid.sum())
+        rows += int(scored.sum())
+        written += b * M
+        state = _iteration(q, q_norms, table, adjacency, fused, scale, state,
+                           M, metric, it, 0 if peeled else cp)
+    return (beam_iter_cost(b, L, written, picks, R, rows, row)
+            + b * (d * q.element_size() + 4))
 
 
 def _has_work(beam_exp: torch.Tensor, beam_d: torch.Tensor,
@@ -244,7 +442,7 @@ def beam_iteration_ref(q, q_norms, table, adjacency, fused, scale,
 
 def _check(q, q_norms, table, adjacency, fused, beam_ids, beam_exp, beam_d,
            visited, flags, expand: int, it_begin: int, it_end: int,
-           tw: int) -> None:
+           tw: int, variant: str) -> None:
     """The operator's checks, in Python (the kernel also needs rows of a
     multiple of 16 elements, which only the operator checks)."""
     if table.dtype not in (torch.bfloat16, torch.float32):
@@ -279,11 +477,14 @@ def _check(q, q_norms, table, adjacency, fused, beam_ids, beam_exp, beam_d,
             and it_end <= flags.shape[0]):
         raise ValueError(f"beam_iter: iterations [{it_begin}, {it_end}) do "
                          "not fit visited or flags")
-    if b > 1 and it_end > it_begin + 1:
-        raise ValueError(f"beam_iter: a batch of {b} queries runs one "
-                         "iteration a launch")
     if not 0 <= tw <= L:
         raise ValueError(f"beam_iter: tw {tw} outside [0, L]")
+    if variant not in VARIANTS or (variant == "warp" and not warp_takes(
+            L, expand, R, d, table.dtype, fused is not None,
+            visited.shape[1])):
+        raise ValueError(f"beam_iter: kernel variant {variant!r} does not "
+                         f"take L {L}, D {d}, expand {expand}, R {R}, "
+                         f"visited {visited.shape[1]}")
 
 
 _op = None
@@ -304,32 +505,39 @@ def _operator():
 def beam_iter(q, q_norms, table, adjacency, fused, scale, beam_ids,
               beam_exp, beam_d, visited, flags, expand: int, metric: int,
               it_begin: int, it_end: int, cp: int, tw: int,
-              peel: bool) -> None:
+              peel: bool, variant: str = "block") -> None:
     """Traversal iterations [it_begin, it_end) of every query, in place on
     the state (beam_ids [B, L] int32, beam_exp [B, L] bool, beam_d [B, L]
     f32 ascending, visited [B, V] int32, flags [n] int32; see
-    beam_iteration_ref for the flag rule). A batch (B > 1) runs one
-    iteration a call. q [B, D] in table's dtype, q_norms [B] f32 (of the
-    f32 queries), table [N, D] bf16/f32, adjacency [N', R] int32, fused
-    optional [N'', R*D] int8 with its dequant `scale`; cp: survivors scored
-    an iteration on the split path (0: all). On CUDA tensors the kernel
-    (csrc/beam_iter.cu through torch.ops.vdb.beam_iter), on CPU tensors
-    beam_iteration_ref. Both raise TypeError for a wrong dtype and
+    beam_iteration_ref for the flag rule). q [B, D] in table's dtype,
+    q_norms [B] f32 (of the f32 queries), table [N, D] bf16/f32, adjacency
+    [N', R] int32, fused optional [N'', R*D] int8 with its dequant `scale`;
+    cp: survivors scored an iteration on the split path (0: all); variant:
+    the kernel, "block" (a block a query) or "warp" (a warp a query, for
+    the shapes warp_takes). On CUDA tensors the kernel (csrc/beam_iter.cu
+    through torch.ops.vdb.beam_iter): a batch of several blocks that runs
+    more than one iteration is one cooperative launch, which the card
+    refuses (RuntimeError) when it cannot hold every block at once. On CPU
+    tensors beam_iteration_ref. Both raise TypeError for a wrong dtype and
     ValueError for the other arguments the kernel does not take."""
     global launches
     if table.is_cuda:
         (_op if _op is not None else _operator())(
             q, q_norms, table, adjacency, fused, float(scale or 0.0),
             beam_ids, beam_exp, beam_d, visited, flags, expand, metric,
-            it_begin, it_end, cp, tw, peel)
+            it_begin, it_end, cp, tw, peel,
+            VARIANTS.index(variant) if variant in VARIANTS else -1)
         if it_end > it_begin:
             launches += 1
+            key = (f"{variant}/"
+                   f"{'walk' if it_end > it_begin + 1 else 'iteration'}")
+            launches_by_plan[key] = launches_by_plan.get(key, 0) + 1
         return
     if table.device.type != "cpu":
         raise ValueError(f"beam_iter: table on {table.device}; the kernel "
                          "takes CUDA tensors, the plain version CPU ones")
     _check(q, q_norms, table, adjacency, fused, beam_ids, beam_exp, beam_d,
-           visited, flags, expand, it_begin, it_end, tw)
+           visited, flags, expand, it_begin, it_end, tw, variant)
     beam_iteration_ref(q, q_norms, table, adjacency, fused, scale, beam_ids,
                        beam_exp, beam_d, visited, flags, expand, metric,
                        it_begin, it_end, cp, tw, peel)
@@ -342,14 +550,17 @@ DEEP_CHECK_EVERY = 4
 
 def traverse(q, q_norms, table, adjacency, fused, scale, beam_ids,
              beam_exp, beam_d, visited, metric: int, expand: int,
-             max_iters: int, term_width: int = 0, compact: int = 0) -> None:
+             max_iters: int, term_width: int = 0, compact: int = 0,
+             plan: Optional[WalkPlan] = None) -> None:
     """Up to max_iters iterations of beam_iter from the given state, in
     place (beam_search_kernel after its seed scan; arguments as there and
     in beam_iter). Iteration 0 of the split path runs uncompacted and
-    unconditionally (JAX's peel). A single query walks in one launch; a
-    batch launches one iteration at a time, each a no-op once the previous
-    one left no query with work (the device flag), so the loop never waits
-    for the device, except that a walk deeper than UNROLL_MAX_ITERS stops
+    unconditionally (JAX's peel). `plan` (default: walk_plan from the
+    card's occupancy, chosen before the launch) gives the kernel variant
+    and the mode: "walk" runs the whole walk in one launch; "iteration"
+    launches one iteration at a time, each a no-op once the previous one
+    left no query with work (the device flag), so the loop never waits for
+    the device, except that a walk deeper than UNROLL_MAX_ITERS stops
     launching when the host, asking every DEEP_CHECK_EVERY launches, finds
     the flag 0."""
     b, L = beam_ids.shape
@@ -357,15 +568,21 @@ def traverse(q, q_norms, table, adjacency, fused, scale, beam_ids,
     cp = compact if compact > 0 else C
     tw = min(term_width if term_width > 0 else L, L)
     peel = fused is None and 0 < cp < C and max_iters > 0
+    if plan is None:
+        plan = _plan(b, L, expand, adjacency.shape[1], q.shape[1],
+                     table.dtype, fused is not None, visited.shape[1],
+                     beam_ids.device)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32,
                         device=beam_ids.device)
 
     def run(it_begin: int, it_end: int, first: bool) -> None:
         beam_iter(q, q_norms, table, adjacency, fused, scale, beam_ids,
                   beam_exp, beam_d, visited, flags, expand, metric, it_begin,
-                  it_end, cp, tw, first and peel)
+                  it_end, cp, tw, first and peel, plan.variant)
 
-    if b == 1:
+    if plan.mode == "walk":
+        if b > 1 and not peel:
+            flags[:1] = _has_work(beam_exp, beam_d, tw)
         run(0, max_iters, True)
         return
     done = 0
