@@ -1,0 +1,7 @@
+"""Seconds of the graph build's "prune" phase in this run's rebuild()
+(GraphIndex.build_seconds: each lap ends in a device synchronize)."""
+
+
+def read(ctx):
+    phases = ctx.build_phases
+    return None if not phases or "prune" not in phases else phases["prune"]
