@@ -29,6 +29,7 @@ from .errors import (DB_UNEXPECTED_ERROR, INVALID_PAYLOAD, Status,
 from .expr.parser import parse_expr
 from .facets import preprocess_facets
 from .logger import logger
+from .metrics import span
 from .ops.sparse import SparseVector
 from .schema import (DENSE_VECTOR_TYPES, INT_TYPES, FieldType,
                      parse_table_schema_from_user_json)
@@ -343,31 +344,33 @@ class DBServer:
                facets_config: Optional[List[Dict[str, Any]]] = None,
                columnar: bool = False
                ) -> Tuple[Status, List[Dict[str, Any]], List[Any]]:
-        try:
-            table = self._get_table(db_name, table_name)
-            field_name = self._resolve_query_field(table, field_name)
-            nodes = parse_expr(filter_str or "", table.field_type_map)
-            facet_executors = preprocess_facets(facets_config or [],
-                                                table.field_type_map)
-            if isinstance(query_vector, dict):
-                query: Any = SparseVector.from_json(query_vector)
-                dim = 0
-            else:
-                query = np.asarray(query_vector, dtype=np.float32)
-                dim = int(query.shape[0])
-                ftype = table.field_type_map.get(field_name)
-                if ftype in DENSE_VECTOR_TYPES:
-                    fdim = table.schema.field_map()[field_name].vector_dimension
-                    if dim != fdim:
-                        return (Status(DB_UNEXPECTED_ERROR,
-                                       "Query dimension doesn't match the "
-                                       "vector field dimension."), [], [])
-            rows, facets = table.search(field_name, query_fields, dim,
-                                        query, limit, nodes, with_distance,
-                                        facet_executors, columnar=columnar)
-        except VectorDBError as e:
-            return e.status, [], []
-        return Status.OK(), rows, facets
+        with span("vdb.search"):
+            try:
+                table = self._get_table(db_name, table_name)
+                field_name = self._resolve_query_field(table, field_name)
+                nodes = parse_expr(filter_str or "", table.field_type_map)
+                facet_executors = preprocess_facets(facets_config or [],
+                                                    table.field_type_map)
+                if isinstance(query_vector, dict):
+                    query: Any = SparseVector.from_json(query_vector)
+                    dim = 0
+                else:
+                    query = np.asarray(query_vector, dtype=np.float32)
+                    dim = int(query.shape[0])
+                    ftype = table.field_type_map.get(field_name)
+                    if ftype in DENSE_VECTOR_TYPES:
+                        fdim = table.schema.field_map()[
+                            field_name].vector_dimension
+                        if dim != fdim:
+                            return (Status(DB_UNEXPECTED_ERROR,
+                                           "Query dimension doesn't match the "
+                                           "vector field dimension."), [], [])
+                rows, facets = table.search(field_name, query_fields, dim,
+                                            query, limit, nodes, with_distance,
+                                            facet_executors, columnar=columnar)
+            except VectorDBError as e:
+                return e.status, [], []
+            return Status.OK(), rows, facets
 
     def hybrid_search(self, db_name: str, table_name: str,
                       subqueries: List[Dict[str, Any]],

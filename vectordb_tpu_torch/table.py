@@ -51,7 +51,7 @@ from .expr.evaluator import FilterCompiler
 from .expr.parser import ExprNode, parse_expr
 from .facets import FacetExecutor
 from .logger import logger
-from .metrics import metrics
+from .metrics import metrics, span
 from .ops import beam as beam_ops
 from .ops import flat as flat_ops
 from .ops import partial_min, qwire
@@ -310,21 +310,22 @@ class Table:
         if metric == MetricType.COSINE:
             query_data = self._normalized(query_data)
 
-        with metrics.timer("search"):
-            ids, dists = self._search_ids(field_name, query_data, limit,
-                                          filter_nodes, is_sparse_query)
+        ids, dists = self._search_ids(field_name, query_data, limit,
+                                      filter_nodes, is_sparse_query)
         metrics.inc("queries_total")
 
         facets: List[Any] = []
         rows: Any = []
-        if query_fields or not facet_executors:
-            if columnar and not facet_executors:
-                rows = self.project_columnar(query_fields, ids,
-                                             with_distance, dists)
-            else:
-                rows = self.project(query_fields, ids, with_distance, dists)
-        for fe in facet_executors or []:
-            facets.append(fe.run(self.segment, ids, dists))
+        with span("vdb.table.project"):
+            if query_fields or not facet_executors:
+                if columnar and not facet_executors:
+                    rows = self.project_columnar(query_fields, ids,
+                                                 with_distance, dists)
+                else:
+                    rows = self.project(query_fields, ids, with_distance,
+                                        dists)
+            for fe in facet_executors or []:
+                facets.append(fe.run(self.segment, ids, dists))
         return rows, facets
 
     @staticmethod
@@ -345,34 +346,36 @@ class Table:
         if n == 0 or limit <= 0:
             return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64))
 
-        compiler = (FilterCompiler(filter_nodes, seg.column)
-                    if filter_nodes else None)
-        uses_distance = compiler.uses_distance() if compiler else False
+        with span("vdb.table.mask"):
+            compiler = (FilterCompiler(filter_nodes, seg.column)
+                        if filter_nodes else None)
+            uses_distance = compiler.uses_distance() if compiler else False
 
-        # Pre-search mask: alive rows, plus pushed-down filters when they
-        # don't reference @distance. Numeric / bool / geo filters of dense
-        # queries compose a device mask over device-resident columns (the
-        # validity mask stays cacheable); every other filter, and every
-        # filter of a sparse query, folds into the host mask.
-        valid = seg.valid_mask()
-        filter_ctx = None
-        boost = 1
-        pre_filter = False
-        if compiler is not None and not uses_distance:
-            if not is_sparse:
-                filter_ctx = self._device_filter(filter_nodes, compiler)
-            if filter_ctx is None:
-                # Host fold (strings / LIKE / IN). The match count is known
-                # here for free, so the graph path's selectivity routing
-                # applies: beam widening up to the flat cutover, the exact
-                # masked scan past it.
-                n_pure = int(np.count_nonzero(valid))
-                valid &= compiler.mask(n_rows=n)
-                n_match = int(np.count_nonzero(valid))
-                if n_match * self.SELECTIVE_FLAT_RATIO < n_pure:
-                    pre_filter = True
-                else:
-                    boost = self._sel_boost(n_pure, n_match)
+            # Pre-search mask: alive rows, plus pushed-down filters when
+            # they don't reference @distance. Numeric / bool / geo filters
+            # of dense queries compose a device mask over device-resident
+            # columns (the validity mask stays cacheable); every other
+            # filter, and every filter of a sparse query, folds into the
+            # host mask.
+            valid = seg.valid_mask()
+            filter_ctx = None
+            boost = 1
+            pre_filter = False
+            if compiler is not None and not uses_distance:
+                if not is_sparse:
+                    filter_ctx = self._device_filter(filter_nodes, compiler)
+                if filter_ctx is None:
+                    # Host fold (strings / LIKE / IN). The match count is
+                    # known here for free, so the graph path's selectivity
+                    # routing applies: beam widening up to the flat
+                    # cutover, the exact masked scan past it.
+                    n_pure = int(np.count_nonzero(valid))
+                    valid &= compiler.mask(n_rows=n)
+                    n_match = int(np.count_nonzero(valid))
+                    if n_match * self.SELECTIVE_FLAT_RATIO < n_pure:
+                        pre_filter = True
+                    else:
+                        boost = self._sel_boost(n_pure, n_match)
 
         if uses_distance:
             k_cand = min(max(limit, self.config.master_queue_size), n)
@@ -1121,106 +1124,108 @@ class Table:
         """Stage 1: pad the batch to its bucket and launch the graph
         search or the flat scan; device work proceeds asynchronously.
         Returns an opaque handle for collect_dense_search()."""
-        seg = self.segment
-        n = seg.record_number
-        graph = self.graphs.get(field_name)
-        n_alive = int(np.count_nonzero(valid))
-        k_eff = min(k, max(n_alive, 1))
-        b_real = queries.shape[0]
-        b_pad = _bucket_batch(b_real)
-        if b_pad != b_real:
-            queries = np.concatenate(
-                [queries, np.broadcast_to(queries[:1],
-                                          (b_pad - b_real,
-                                           queries.shape[1]))], axis=0)
-        h = {"field": field_name, "queries": queries, "valid": valid,
-             "metric": metric, "k_eff": k_eff, "b_real": b_real, "n": n,
-             "n_alive": n_alive, "mask_cacheable": mask_cacheable,
-             "filter_ctx": filter_ctx, "mode": "flat"}
-        sf = self.sharded_fields.get(field_name)
-        if sf is not None:
-            # A device filter evaluates per shard on its device over
-            # version-cached columns; host-folded filters arrive folded
-            # into `valid` (with pre_filter / boost set by the caller).
-            shard_filter = None
-            if filter_ctx is not None:
-                sf.sync(seg.dense_host[field_name],
-                        seg.dense_norms[field_name], n)
-                shard_filter = (filter_ctx.device,
-                                sf.device_columns(seg, filter_ctx.device))
-            h["mode"] = "sharded"
-            h["sf"] = sf
-            h["dev"], h["shard_ctx"] = self._sharded_launch(
-                sf, field_name, queries, valid, metric, k_eff, n, n_alive,
-                mask_cacheable, ef=ef, shard_filter=shard_filter,
-                boost=boost, pre_filter=pre_filter, iters=iters,
-                b_real=b_real)
-            return h
-        use_graph = (graph is not None
-                     and n >= self.config.brute_force_threshold
-                     and not self.config.pre_filter and not pre_filter)
-        dm = None
-        if use_graph and filter_ctx is not None:
-            # Selectivity gate before committing to the graph: count the
-            # device filter's matches on the device (cached per filter and
-            # version) and either widen the beam (~2/s) or, past the flat
-            # cutover, pre-filter with the exact masked scan.
+        with span("vdb.table.dispatch"):
+            seg = self.segment
+            n = seg.record_number
+            graph = self.graphs.get(field_name)
+            n_alive = int(np.count_nonzero(valid))
+            k_eff = min(k, max(n_alive, 1))
+            b_real = queries.shape[0]
+            b_pad = _bucket_batch(b_real)
+            if b_pad != b_real:
+                queries = np.concatenate(
+                    [queries, np.broadcast_to(queries[:1],
+                                              (b_pad - b_real,
+                                               queries.shape[1]))], axis=0)
+            h = {"field": field_name, "queries": queries, "valid": valid,
+                 "metric": metric, "k_eff": k_eff, "b_real": b_real, "n": n,
+                 "n_alive": n_alive, "mask_cacheable": mask_cacheable,
+                 "filter_ctx": filter_ctx, "mode": "flat"}
+            sf = self.sharded_fields.get(field_name)
+            if sf is not None:
+                # A device filter evaluates per shard on its device over
+                # version-cached columns; host-folded filters arrive folded
+                # into `valid` (with pre_filter / boost set by the caller).
+                shard_filter = None
+                if filter_ctx is not None:
+                    sf.sync(seg.dense_host[field_name],
+                            seg.dense_norms[field_name], n)
+                    shard_filter = (filter_ctx.device,
+                                    sf.device_columns(seg, filter_ctx.device))
+                h["mode"] = "sharded"
+                h["sf"] = sf
+                h["dev"], h["shard_ctx"] = self._sharded_launch(
+                    sf, field_name, queries, valid, metric, k_eff, n, n_alive,
+                    mask_cacheable, ef=ef, shard_filter=shard_filter,
+                    boost=boost, pre_filter=pre_filter, iters=iters,
+                    b_real=b_real)
+                return h
+            use_graph = (graph is not None
+                         and n >= self.config.brute_force_threshold
+                         and not self.config.pre_filter and not pre_filter)
+            dm = None
+            if use_graph and filter_ctx is not None:
+                # Selectivity gate before committing to the graph: count the
+                # device filter's matches on the device (cached per filter and
+                # version) and either widen the beam (~2/s) or, past the flat
+                # cutover, pre-filter with the exact masked scan.
+                store = seg.device_view(field_name)
+                dm = self._composed_device_mask(store, valid, mask_cacheable,
+                                                filter_ctx)
+                n_match = filter_ctx.device.match_count(dm)
+                if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
+                    use_graph = False
+                else:
+                    boost = max(boost, self._sel_boost(n_alive, n_match))
+            if not use_graph:
+                h["dev"] = self._flat_launch(
+                    field_name, queries, valid, metric,
+                    min(k_eff + RERANK_SLACK, max(n_alive, 1)),
+                    mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)
+                return h
+            # Mask-aware device search: traversal sees every row, the returned
+            # top-k leaves deleted / filtered rows out on the device (reference
+            # post-filter semantics), and only [B, k + slack] comes back.
             store = seg.device_view(field_name)
-            dm = self._composed_device_mask(store, valid, mask_cacheable,
-                                            filter_ctx)
-            n_match = filter_ctx.device.match_count(dm)
-            if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
-                use_graph = False
-            else:
-                boost = max(boost, self._sel_boost(n_alive, n_match))
-        if not use_graph:
-            h["dev"] = self._flat_launch(
-                field_name, queries, valid, metric,
-                min(k_eff + RERANK_SLACK, max(n_alive, 1)),
-                mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)
+            if dm is None:
+                dm = self._composed_device_mask(store, valid, mask_cacheable,
+                                                filter_ctx)
+            k_out = min(k_eff + GRAPH_SLACK, graph.num_rows)
+            # Only the real queries walk: the bucket's padding rows copy query
+            # 0, so they neither change the batch's stop rule nor need a walk
+            # of their own (fetch_dense_search copies query 0's result to
+            # them), and a single query walks as a batch of one: one launch.
+            qp = np.zeros((b_real, store.dim_padded), dtype=np.float32)
+            qp[:, : queries.shape[1]] = queries[:b_real]
+            bw = max(self._field_ef(field_name, ef) * boost, k_out)
+            # The termination window scales with the boost too: a filtered walk
+            # must reach the filtered-rank-k neighbours before it stops.
+            term = min(max(self.config.beam_term_width, k_eff) * boost, bw)
+            if boost > 1:
+                term = min(max(term, bw // 4), bw)
+            max_iters = (bw if boost > 1
+                         else self._field_iters(field_name, bw, iters))
+            fused, fscale = self._fused_view(graph)
+            h["dev"] = beam_ops.beam_search_topk(
+                torch.from_numpy(qp).to(store.buf.device), graph.table,
+                graph.norms,
+                graph.adjacency_traversal(self.config.beam_traversal_degree),
+                graph.rep_ids, dm, int(metric), int(bw),
+                int(self.config.beam_expand), int(max_iters), 32, int(term),
+                int(k_out),
+                0 if fused is not None else int(self.config.beam_compact),
+                fused=fused, scale=fscale)
+            h["mode"] = "graph"
+            h["graph_rows"] = graph.num_rows
             return h
-        # Mask-aware device search: traversal sees every row, the returned
-        # top-k leaves deleted / filtered rows out on the device (reference
-        # post-filter semantics), and only [B, k + slack] comes back.
-        store = seg.device_view(field_name)
-        if dm is None:
-            dm = self._composed_device_mask(store, valid, mask_cacheable,
-                                            filter_ctx)
-        k_out = min(k_eff + GRAPH_SLACK, graph.num_rows)
-        # Only the real queries walk: the bucket's padding rows copy query
-        # 0, so they neither change the batch's stop rule nor need a walk
-        # of their own (fetch_dense_search copies query 0's result to
-        # them), and a single query walks as a batch of one: one launch.
-        qp = np.zeros((b_real, store.dim_padded), dtype=np.float32)
-        qp[:, : queries.shape[1]] = queries[:b_real]
-        bw = max(self._field_ef(field_name, ef) * boost, k_out)
-        # The termination window scales with the boost too: a filtered walk
-        # must reach the filtered-rank-k neighbours before it stops.
-        term = min(max(self.config.beam_term_width, k_eff) * boost, bw)
-        if boost > 1:
-            term = min(max(term, bw // 4), bw)
-        max_iters = (bw if boost > 1
-                     else self._field_iters(field_name, bw, iters))
-        fused, fscale = self._fused_view(graph)
-        h["dev"] = beam_ops.beam_search_topk(
-            torch.from_numpy(qp).to(store.buf.device), graph.table,
-            graph.norms,
-            graph.adjacency_traversal(self.config.beam_traversal_degree),
-            graph.rep_ids, dm, int(metric), int(bw),
-            int(self.config.beam_expand), int(max_iters), 32, int(term),
-            int(k_out),
-            0 if fused is not None else int(self.config.beam_compact),
-            fused=fused, scale=fscale)
-        h["mode"] = "graph"
-        h["graph_rows"] = graph.num_rows
-        return h
 
     def fetch_dense_search(self, h):
         """Stage 2a: blocking copy of the dispatched results to the host.
         Host-only work stays in collect_dense_search, so a pipelining
         caller dispatches the NEXT batch between fetch and collect."""
         if "dev" in h and "dev_host" not in h:
-            host = tuple(t.cpu().numpy() for t in h["dev"])
+            with span("vdb.table.fetch"):
+                host = tuple(t.cpu().numpy() for t in h["dev"])
             # A graph walk ran the real queries only: the padding rows,
             # copies of query 0, get its result.
             pad = h["queries"].shape[0] - host[0].shape[0]
@@ -1235,42 +1240,43 @@ class Table:
         """Stage 2b: merge the flat tail and the full-k top-up (graph
         mode), then the exact re-rank on the host mirror."""
         self.fetch_dense_search(h)
-        field_name, queries = h["field"], h["queries"]
-        valid, metric, k_eff = h["valid"], h["metric"], h["k_eff"]
-        d_h, ids_h = h["dev_host"]
-        cand_ids = ids_h.astype(np.int64)
-        cand_ids[~np.isfinite(d_h)] = -1
-        if h["mode"] == "sharded":
-            # Full-k guarantee: the exact sharded flat scan under the same
-            # masks tops up rows the per-shard beams left short.
-            ctx = h["shard_ctx"]
-            if (ctx["use_graph"] and (cand_ids >= 0).sum(axis=1).min()
-                    < min(k_eff, h["n_alive"])):
-                f_ids = h["sf"].search(
-                    ctx["qp"], ctx["valid"], metric, ctx["k_cand"],
-                    mask_version=ctx["ver"],
-                    shard_filter=ctx["shard_filter"])
-                cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
-        elif h["mode"] == "graph":
-            n, n_alive = h["n"], h["n_alive"]
-            kw = dict(mask_cacheable=h["mask_cacheable"],
-                      filter_ctx=h["filter_ctx"])
-            # Brute-force tail over rows inserted after the graph build.
-            if n > h["graph_rows"]:
-                t_ids, _ = self._flat_candidates(
-                    field_name, queries, valid, metric,
-                    min(k_eff + RERANK_SLACK, n),
-                    row_start=h["graph_rows"], **kw)
-                cand_ids = np.concatenate([cand_ids, t_ids], axis=1)
-            # Full-k guarantee: when the beam surfaced too few valid rows
-            # (selective filter), top up with the exact masked scan.
-            if (cand_ids >= 0).sum(axis=1).min() < min(k_eff, n_alive):
-                f_ids, _ = self._flat_candidates(
-                    field_name, queries, valid, metric,
-                    min(k_eff + RERANK_SLACK, max(n_alive, 1)), **kw)
-                cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
-        return self._rerank_candidates(field_name, queries, cand_ids,
-                                       metric, k_eff, h["b_real"])
+        with span("vdb.table.rerank"):
+            field_name, queries = h["field"], h["queries"]
+            valid, metric, k_eff = h["valid"], h["metric"], h["k_eff"]
+            d_h, ids_h = h["dev_host"]
+            cand_ids = ids_h.astype(np.int64)
+            cand_ids[~np.isfinite(d_h)] = -1
+            if h["mode"] == "sharded":
+                # Full-k guarantee: the exact sharded flat scan under the same
+                # masks tops up rows the per-shard beams left short.
+                ctx = h["shard_ctx"]
+                if (ctx["use_graph"] and (cand_ids >= 0).sum(axis=1).min()
+                        < min(k_eff, h["n_alive"])):
+                    f_ids = h["sf"].search(
+                        ctx["qp"], ctx["valid"], metric, ctx["k_cand"],
+                        mask_version=ctx["ver"],
+                        shard_filter=ctx["shard_filter"])
+                    cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
+            elif h["mode"] == "graph":
+                n, n_alive = h["n"], h["n_alive"]
+                kw = dict(mask_cacheable=h["mask_cacheable"],
+                          filter_ctx=h["filter_ctx"])
+                # Brute-force tail over rows inserted after the graph build.
+                if n > h["graph_rows"]:
+                    t_ids, _ = self._flat_candidates(
+                        field_name, queries, valid, metric,
+                        min(k_eff + RERANK_SLACK, n),
+                        row_start=h["graph_rows"], **kw)
+                    cand_ids = np.concatenate([cand_ids, t_ids], axis=1)
+                # Full-k guarantee: when the beam surfaced too few valid rows
+                # (selective filter), top up with the exact masked scan.
+                if (cand_ids >= 0).sum(axis=1).min() < min(k_eff, n_alive):
+                    f_ids, _ = self._flat_candidates(
+                        field_name, queries, valid, metric,
+                        min(k_eff + RERANK_SLACK, max(n_alive, 1)), **kw)
+                    cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
+            return self._rerank_candidates(field_name, queries, cand_ids,
+                                           metric, k_eff, h["b_real"])
 
     def _sharded_launch(self, sf, field_name: str, queries: np.ndarray,
                         valid: np.ndarray, metric: MetricType, k_eff: int,
@@ -1468,26 +1474,30 @@ class Table:
         The re-rank scores the whole sorted query, so EUCLIDEAN keeps its
         norm. Divergence: the JAX package re-ranks the query as given, and
         reports wrong distances for an unsorted one."""
-        n_valid = int(np.count_nonzero(valid))
-        if n_valid == 0:
-            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64)
-        query = query.sorted()
-        index = self._sparse_index(field_name)
-        d = index.device_scores(query.within(self.dim_map[field_name]),
-                                metric)
-        keep = self._device_mask(index.n_rows, d.device, valid, 0,
-                                 mask_cacheable)
-        d = d.masked_fill(~keep, float("inf"))
-        k = min(k, n_valid)
-        kk = min(k + RERANK_SLACK, n_valid)
-        cand = np.sort(torch.topk(d, kk, largest=False, sorted=False)
-                       .indices.cpu().numpy()).astype(np.int64)
-        col = self.segment.sparse_cols[field_name]
-        exact = np.asarray([
-            sparse_ops.distance(query, col[r], metric)
-            if col[r] is not None else np.inf
-            for r in cand], dtype=np.float64)
-        order = np.argsort(exact, kind="stable")[:k]
+        with span("vdb.table.dispatch"):
+            n_valid = int(np.count_nonzero(valid))
+            if n_valid == 0:
+                return (np.zeros(0, dtype=np.int64),
+                        np.zeros(0, dtype=np.float64))
+            query = query.sorted()
+            index = self._sparse_index(field_name)
+            d = index.device_scores(query.within(self.dim_map[field_name]),
+                                    metric)
+            keep = self._device_mask(index.n_rows, d.device, valid, 0,
+                                     mask_cacheable)
+            d = d.masked_fill(~keep, float("inf"))
+            k = min(k, n_valid)
+            kk = min(k + RERANK_SLACK, n_valid)
+            top = torch.topk(d, kk, largest=False, sorted=False).indices
+        with span("vdb.table.fetch"):
+            cand = np.sort(top.cpu().numpy()).astype(np.int64)
+        with span("vdb.table.rerank"):
+            col = self.segment.sparse_cols[field_name]
+            exact = np.asarray([
+                sparse_ops.distance(query, col[r], metric)
+                if col[r] is not None else np.inf
+                for r in cand], dtype=np.float64)
+            order = np.argsort(exact, kind="stable")[:k]
         return cand[order], exact[order]
 
     # ------------------------------------------------------------------
