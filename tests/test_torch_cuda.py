@@ -1,7 +1,8 @@
 """The port on a CUDA device: the partial-min, row-gather, CSR
 inner-product and beam-iteration kernels against their plain versions, the flat-serve and
-graph slices through the kernels, the query wires' device round trip
-against the host's and the flat-serve kernel path under the int8 wire,
+graph slices through the kernels, a graph query's device chain replayed
+from a captured CUDA graph against its eager run, the query wires' device
+round trip against the host's and the flat-serve kernel path under the int8 wire,
 device filter masks against the host evaluator, a REST query over a CUDA
 store, and sparse scoring, the IVF KNN and hybrid search on the card
 against their CPU runs.
@@ -1298,3 +1299,230 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda_device):
              args[2][:, :24].contiguous(), *args[3:])  # rows of 24
     with pytest.raises(ValueError):
         call(*args, expand=17)  # more picks than the beam holds
+
+
+# A graph query's device chain replayed from a captured CUDA graph
+# (ops/beam.ReplayCache): the replay must equal the eager chain bit for
+# bit, since the same kernels run in the same order on the same data.
+
+REPLAY_COUNTERS = ("cuda_graph_replays_total", "cuda_graph_captures_total",
+                   "cuda_graph_eager_total")
+
+
+def _replay_counts():
+    from vectordb_tpu_torch.metrics import metrics
+    c = metrics.snapshot()["counters"]
+    return np.array([int(c.get(k, 0)) for k in REPLAY_COUNTERS])
+
+
+def _replay_table(tmp_path, metric=MetricType.EUCLIDEAN, fused="auto",
+                  n=6000, dim=128):
+    """A graph table on the card with an INT column `cat` (row % 4);
+    (table, rows, queries)."""
+    x, queries = _clustered_rows(n, dim, seed=31)
+    assert vdb.load_db("rp", str(tmp_path / "rp"), vector_scale=2 * n) == 0
+    vdb.use_db("rp")
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+         "metricType": metric.name},
+        {"name": "cat", "dataType": "INT"}])
+    vdb.insert_columns("t", {"ID": np.arange(n), "Emb": x,
+                             "cat": (np.arange(n) % 4).astype(np.int32)})
+    assert vdb.update_config({"FlatServe": "off", "FusedTraversal": fused,
+                              "AutoTuneSearch": False}) == 0
+    assert vdb.rebuild() == 0
+    return vdb._db.databases["rp"].tables["t"], x, queries
+
+
+def _dev_out(table, q, **kw):
+    """The graph branch's device answer (d, ids) to host queries q, as
+    fetch_dense_search hands it to the re-rank."""
+    h = table.dispatch_dense_search("Emb", q, table.segment.valid_mask(),
+                                    table.metric_map["Emb"], 10,
+                                    mask_cacheable=True, **kw)
+    assert h["mode"] == "graph"
+    return table.fetch_dense_search(h)["dev_host"]
+
+
+def _eager(monkeypatch, fn):
+    """fn() with every chain run eager."""
+    with monkeypatch.context() as m:
+        m.setattr(beam, "_capturable", lambda table, plan, it: False)
+        return fn()
+
+
+def _assert_bits(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert x.tobytes() == y.tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_replayed_query_equals_eager(cuda_device, tmp_path, monkeypatch,
+                                     metric, fused):
+    """Single queries: the first runs eager, the second is captured and
+    replayed, the rest replay the same chain with their own query; every
+    answer equals the eager chain's, and a replay launches the beam and
+    gather kernels."""
+    table, _, qs = _replay_table(tmp_path, metric, fused)
+    assert (table._fused_view(table.graphs["Emb"])[0] is not None) == (
+        fused == "auto")
+    want = _eager(monkeypatch, lambda: [_dev_out(table, qs[i:i + 1])
+                                        for i in range(6)])
+    before = _replay_counts()
+    got = [_dev_out(table, qs[i:i + 1]) for i in range(5)]
+    beam.reset_launches()
+    gather.reset_launches()
+    got.append(_dev_out(table, qs[5:6]))
+    assert beam.launches == 1 and gather.launches > 0
+    assert (_replay_counts() - before).tolist() == [5, 1, 1]
+    for a, b in zip(got, want):
+        _assert_bits(a, b)
+    assert len(table._replays) == 1
+
+
+@pytest.mark.gpu
+def test_replay_after_a_delete(cuda_device, tmp_path, monkeypatch):
+    """A delete makes a new mask version: the chain is dropped, the key
+    runs eager once, is captured again, and no deleted row comes back."""
+    table, _, qs = _replay_table(tmp_path)
+    q = qs[:1]
+    for _ in range(3):
+        _, ids = _dev_out(table, q)
+    victims = [int(i) for i in ids[0, :3]]
+    assert vdb.delete_by_pk("t", victims) == 0
+    want = _eager(monkeypatch, lambda: _dev_out(table, q))
+    before = _replay_counts()
+    got = [_dev_out(table, q) for _ in range(3)]
+    assert (_replay_counts() - before).tolist() == [2, 1, 1]
+    for g in got:
+        _assert_bits(g, want)
+        assert not set(victims) & set(g[1][0].tolist())
+
+
+@pytest.mark.gpu
+def test_replay_with_rows_inserted_past_the_graph(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """Rows inserted after the build: the replayed walk merges with the
+    flat tail, and the inserted copy of the query ranks first."""
+    table, x, qs = _replay_table(tmp_path)
+    n = x.shape[0]
+    new = qs[100:150].copy()
+    vdb.insert_columns("t", {"ID": np.arange(n, n + 50), "Emb": new,
+                             "cat": np.zeros(50, np.int32)})
+    q = new[7:8]
+    search = lambda: table.batch_dense_search(
+        "Emb", q, table.segment.valid_mask(), MetricType.EUCLIDEAN, 10,
+        mask_cacheable=True)
+    want = _eager(monkeypatch, search)
+    assert want[0][0, 0] == n + 7
+    before = _replay_counts()
+    for _ in range(3):
+        ids, d = search()
+        np.testing.assert_array_equal(ids, want[0])
+        assert d.tobytes() == want[1].tobytes()
+    assert (_replay_counts() - before).tolist() == [2, 1, 1]
+
+
+@pytest.mark.gpu
+def test_rebuild_drops_the_chains(cuda_device, tmp_path, monkeypatch):
+    table, x, qs = _replay_table(tmp_path)
+    q = qs[:1]
+    for _ in range(3):
+        _dev_out(table, q)
+    assert len(table._replays) == 1
+    n = x.shape[0]
+    vdb.insert_columns("t", {"ID": np.arange(n, n + 100), "Emb": qs[:100],
+                             "cat": np.zeros(100, np.int32)})
+    assert vdb.rebuild() == 0
+    assert len(table._replays) == 0
+    want = _eager(monkeypatch, lambda: _dev_out(table, q))
+    before = _replay_counts()
+    for _ in range(3):
+        _assert_bits(_dev_out(table, q), want)
+    assert (_replay_counts() - before).tolist() == [2, 1, 1]
+
+
+@pytest.mark.gpu
+def test_replay_under_a_repeated_device_filter(cuda_device, tmp_path,
+                                               monkeypatch):
+    """A device-compilable filter keeps its composed mask per version, so
+    its widened walk is captured and replayed like an unfiltered one."""
+    table, _, qs = _replay_table(tmp_path)
+    flt = "cat = 1"
+    nodes = parse_expr(flt, table.field_type_map)
+    ctx = table._device_filter(nodes,
+                               FilterCompiler(nodes, table.segment.column))
+    assert ctx is not None
+    run = lambda i: _dev_out(table, qs[i:i + 1], filter_ctx=ctx)
+    want = _eager(monkeypatch, lambda: [run(i) for i in range(4)])
+    before = _replay_counts()
+    got = [run(i) for i in range(4)]
+    assert (_replay_counts() - before).tolist() == [3, 1, 1]
+    for a, b in zip(got, want):
+        _assert_bits(a, b)
+        ids = a[1][0]
+        assert (ids[ids >= 0] % 4 == 1).all()
+
+
+@pytest.mark.gpu
+def test_replay_of_a_batch_with_two_in_flight(cuda_device, tmp_path,
+                                              monkeypatch):
+    """A batch of 3 (a cooperative walk) and, while its replay is
+    unfetched, a second batch of its key, which runs eager; then the
+    pipelined batches of grouped_dense_search; then a replay dropped
+    unfetched, which the next replay of the chain waits for."""
+    table, _, qs = _replay_table(tmp_path)
+    metric = MetricType.EUCLIDEAN
+    valid = table.segment.valid_mask()
+    dispatch = lambda q: table.dispatch_dense_search(
+        "Emb", q, valid, metric, 10, mask_cacheable=True)
+    want = _eager(monkeypatch, lambda: [_dev_out(table, qs[s:s + 3])
+                                        for s in (0, 3)])
+    before = _replay_counts()
+    for _ in range(2):
+        _assert_bits(_dev_out(table, qs[:3]), want[0])
+    h1, h2 = dispatch(qs[:3]), dispatch(qs[3:6])
+    assert isinstance(h1["dev"], beam.Replayed)
+    assert not isinstance(h2["dev"], beam.Replayed)
+    _assert_bits(table.fetch_dense_search(h2)["dev_host"], want[1])
+    _assert_bits(table.fetch_dense_search(h1)["dev_host"], want[0])
+    assert (_replay_counts() - before).tolist() == [2, 1, 2]
+    assert vdb.update_config({"QueryGroupSize": 1}) == 0
+    grouped = lambda: table.grouped_dense_search("Emb", qs[:12], valid,
+                                                 metric, 10, batch=3,
+                                                 mask_cacheable=True)
+    ids_e, d_e = _eager(monkeypatch, grouped)
+    before = _replay_counts()
+    ids, d = grouped()
+    np.testing.assert_array_equal(ids, ids_e)
+    assert d.tobytes() == d_e.tobytes()
+    assert (_replay_counts() - before).tolist() == [4, 0, 0]
+    h = dispatch(qs[:3])  # dropped unfetched: the next replay waits for it
+    assert isinstance(h["dev"], beam.Replayed)
+    del h
+    _assert_bits(_dev_out(table, qs[3:6]), want[1])
+    assert (_replay_counts() - before).tolist() == [6, 0, 0]
+
+
+@pytest.mark.gpu
+def test_deep_walk_of_a_launch_an_iteration_stays_eager(cuda_device,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """A walk of a launch an iteration deeper than UNROLL_MAX_ITERS reads
+    the device flag on the host: never captured. At UNROLL_MAX_ITERS it
+    reads nothing back, and is."""
+    table, _, qs = _replay_table(tmp_path)
+    monkeypatch.setattr(beam, "_plan",
+                        lambda *a: beam.WalkPlan("block", "iteration"))
+    for iters, counts in ((beam.UNROLL_MAX_ITERS + 8, [0, 0, 3]),
+                          (beam.UNROLL_MAX_ITERS, [2, 1, 1])):
+        run = lambda: _dev_out(table, qs[:1], iters=iters)
+        want = _eager(monkeypatch, run)
+        before = _replay_counts()
+        for _ in range(3):
+            _assert_bits(run(), want)
+        assert (_replay_counts() - before).tolist() == counts

@@ -53,17 +53,28 @@ Translation notes:
     traversal runs on the wire's values, as JAX's decoded `packed_gb`
     buffer, and the exact re-rank on the f32 queries, where JAX re-ranks
     against the wire's values.
+
+A table's dense graph queries go through a ReplayCache: the whole device
+chain of a query (upload, seed scan, walk, masked top-k, copy back) is
+captured once as a CUDA graph and replayed, in place of its ~60 eager
+launches, for inputs that repeat (JAX compiles the chain into one program
+instead).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
+from collections import OrderedDict
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..logger import logger
+from ..metrics import metrics, span
 from ..schema import MetricType
-from . import qwire
+from . import gather, qwire
 from .gather import gather_rows
 
 DEFAULT_EXPAND = 4  # beam entries expanded per iteration (M)
@@ -678,6 +689,258 @@ def beam_search_topk(queries, table, norms, adjacency, rep_ids, valid,
     d = torch.gather(beam_d.masked_fill(~ok, _INF), 1, sel)
     ids = torch.gather(beam_ids, 1, sel)
     return d, torch.where(torch.isfinite(d), ids, -1)
+
+
+# The range around a chain's replay (metrics.span), inside
+# "vdb.table.dispatch".
+REPLAY_SPAN = "vdb.table.replay"
+# Chains a ReplayCache keeps captured (the least recently used goes first),
+# and keys it remembers having seen once or having failed to capture.
+REPLAY_CHAINS = 4
+REPLAY_SIGHTINGS = 64
+
+# One capture at a time in the process (a CUDA graph capture owns the
+# caching allocator's routing to its pool while it runs).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _ident(t: Optional[torch.Tensor]):
+    return None if t is None else (t.device, t.data_ptr(), tuple(t.shape),
+                                   t.dtype)
+
+
+def replay_key(qp_shape, table, norms, adjacency, rep_ids, valid,
+               metric: int, beam_width: int, expand: int, max_iters: int,
+               num_seeds: int, term_width: int, k_out: int, compact: int,
+               fused, scale, plan: WalkPlan) -> tuple:
+    """What a captured beam_search_topk chain depends on: the queries'
+    shape, every scalar of the walk and its plan, and the identity (device,
+    address, shape, dtype) of every device input. A chain holds the tensors
+    it read, so an equal identity is the same memory."""
+    return (tuple(qp_shape), int(metric), int(beam_width), int(expand),
+            int(max_iters), int(num_seeds), int(term_width), int(k_out),
+            int(compact), plan, _ident(table), _ident(norms),
+            _ident(adjacency), _ident(rep_ids), _ident(valid), _ident(fused),
+            None if scale is None else float(scale))
+
+
+def _capturable(table: torch.Tensor, plan: WalkPlan, max_iters: int) -> bool:
+    """A chain can be captured on a CUDA table whose walk reads nothing
+    back to the host: not a deep walk of a launch an iteration (traverse
+    asks the host for the flag every DEEP_CHECK_EVERY launches)."""
+    return table.is_cuda and (plan.mode == "walk"
+                              or max_iters <= UNROLL_MAX_ITERS)
+
+
+def _launch_counts() -> tuple:
+    return (launches, dict(launches_by_plan), gather.launches,
+            dict(gather.launches_by_row_bytes))
+
+
+def _add_launch_counts(counts: tuple, sign: int = 1) -> None:
+    """Adds (or with sign -1 takes away) a _launch_counts() difference to
+    this module's and ops/gather's launch counters."""
+    global launches
+    n, by_plan, g, by_row = counts
+    launches += sign * n
+    gather.launches += sign * g
+    for into, add in ((launches_by_plan, by_plan),
+                      (gather.launches_by_row_bytes, by_row)):
+        for k, v in add.items():
+            into[k] = into.get(k, 0) + sign * v
+
+
+def _launch_diff(a: tuple, b: tuple) -> tuple:
+    return (b[0] - a[0], {k: v - a[1].get(k, 0) for k, v in b[1].items()},
+            b[2] - a[2], {k: v - a[3].get(k, 0) for k, v in b[3].items()})
+
+
+class _Chain:
+    """One captured beam_search_topk: `inputs` (its arguments after the
+    queries, held so that no address it reads is freed while it lives),
+    the pinned query it uploads (`q_np`) into `q_dev`, its CUDA `graph`,
+    the pinned (d, ids) it copies back (`d_np`, `ids_np`; each numpy view
+    holds its tensor), the
+    event `done` that the graph's last node records, the kernel launches
+    a replay makes (`launches`, a _launch_counts() difference), `owner`:
+    a weak reference to the Replayed of a replay not yet fetched, and
+    `unfetched`: the last replay's Replayed was dropped unfetched."""
+
+    def __init__(self, inputs: tuple):
+        self.inputs = inputs
+        self.owner = None
+        self.unfetched = False
+        self.q_np = self.q_dev = self.graph = None
+        self.d_np = self.ids_np = self.done = self.launches = None
+
+    def busy(self) -> bool:
+        return self.owner is not None and self.owner() is not None
+
+    def claim(self) -> "Replayed":
+        token = Replayed(self)
+        self.unfetched = self.owner is not None  # not busy: it died
+        self.owner = weakref.ref(token)
+        return token
+
+    def launch(self, qp: np.ndarray) -> None:
+        if self.unfetched:  # that replay may still read the pinned query
+            self.done.synchronize()
+        self.q_np[...] = qp
+        with span(REPLAY_SPAN):
+            self.graph.replay()
+        _add_launch_counts(self.launches)
+        metrics.inc("cuda_graph_replays_total")
+
+
+class Replayed:
+    """A replay of a captured chain: fetch() waits for it and returns
+    copies of its ([b, k_out] f32 distances, [b, k_out] int32 ids), as
+    numpy, so the next replay cannot overwrite an unread answer."""
+
+    def __init__(self, chain: _Chain):
+        self.chain = chain
+
+    def fetch(self) -> Tuple[np.ndarray, np.ndarray]:
+        c = self.chain
+        c.done.synchronize()
+        out = (c.d_np.copy(), c.ids_np.copy())
+        c.owner = None
+        return out
+
+
+def _capture(chain: _Chain, qp: np.ndarray) -> None:
+    """Warm up beam_search_topk(qp, *chain.inputs) on a side stream, then
+    capture there, into a CUDA graph with a private memory pool, the
+    query's upload from a pinned buffer, the search, the copy of its
+    (d, ids) into pinned buffers, and the record of `done` (an event
+    record node: no record call a replay). Raises RuntimeError where the
+    card will not capture the chain."""
+    dev = chain.inputs[0].device
+    chain.done = torch.cuda.Event(external=True)
+    q_host = torch.from_numpy(qp).pin_memory()
+    chain.q_np = q_host.numpy()
+    chain.q_dev = torch.empty(qp.shape, dtype=torch.float32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        chain.q_dev.copy_(q_host, non_blocking=True)
+        d, ids = beam_search_topk(chain.q_dev, *chain.inputs)
+        d_host = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+        ids_host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+        before = _launch_counts()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            chain.q_dev.copy_(q_host, non_blocking=True)
+            d, ids = beam_search_topk(chain.q_dev, *chain.inputs)
+            d_host.copy_(d, non_blocking=True)
+            ids_host.copy_(ids, non_blocking=True)
+            chain.done.record()
+        finally:
+            # A capture launches nothing: its counts go to each replay.
+            chain.launches = _launch_diff(before, _launch_counts())
+            _add_launch_counts(chain.launches, -1)
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    chain.graph = graph
+    chain.d_np, chain.ids_np = d_host.numpy(), ids_host.numpy()
+
+
+class ReplayCache:
+    """beam_search_topk for one table's dense graph queries, replayed from
+    a captured CUDA graph where its inputs repeat. A key (replay_key) is
+    captured the second time it is seen, so a key seen once never pays for
+    a capture, and replayed from then on; a key whose capture raised runs
+    eager from then on. A chain has one replay in flight: while its
+    answer is unfetched, a call with its key runs eager. At most
+    REPLAY_CHAINS chains are kept; dropping one (eviction, clear()) frees
+    its graph's memory pool and the tensors it held. Counts every call in
+    `metrics`: cuda_graph_replays_total, cuda_graph_captures_total and
+    cuda_graph_eager_total (first sightings, busy chains, refused keys,
+    inputs that do not repeat, and every call on the CPU)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._chains: "OrderedDict[tuple, _Chain]" = OrderedDict()
+        self._seen: "OrderedDict[tuple, bool]" = OrderedDict()
+        self._refused: "OrderedDict[tuple, bool]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._chains)
+
+    def clear(self) -> None:
+        """Drop every chain and sighting (a new index or a new mask)."""
+        with self._lock:
+            self._chains.clear()
+            self._seen.clear()
+            self._refused.clear()
+
+    def search_topk(self, qp: np.ndarray, table, norms, adjacency, rep_ids,
+                    valid, metric: int, beam_width: int, expand: int,
+                    max_iters: int, num_seeds: int, term_width: int,
+                    k_out: int, compact: int = 0, fused=None, scale=None,
+                    repeats: bool = True):
+        """beam_search_topk of the [b, D] f32 host queries `qp` (the
+        arguments after them as there). `repeats`: whether the inputs can
+        recur (False for a mask made for this call alone: its address
+        would be captured for nothing). Returns the eager chain's device
+        (d, ids), or a Replayed: the same values, bit for bit."""
+        inputs = (table, norms, adjacency, rep_ids, valid, metric,
+                  beam_width, expand, max_iters, num_seeds, term_width,
+                  k_out, compact, fused, scale)
+        plan = _plan(qp.shape[0], beam_width, expand, adjacency.shape[1],
+                     qp.shape[1], table.dtype, fused is not None,
+                     expand * max_iters, table.device)
+        token = (self._claim(qp, inputs, plan)
+                 if repeats and _capturable(table, plan, max_iters) else None)
+        if token is None:
+            metrics.inc("cuda_graph_eager_total")
+            return beam_search_topk(torch.from_numpy(qp).to(table.device),
+                                    *inputs)
+        token.chain.launch(qp)
+        return token
+
+    def _claim(self, qp: np.ndarray, inputs: tuple,
+               plan: WalkPlan) -> Optional[Replayed]:
+        """The claimed chain of this call's key (captured now on its second
+        sighting), or None where the call runs eager."""
+        key = replay_key(qp.shape, *inputs, plan)
+        with self._lock:
+            chain = self._chains.get(key)
+            if chain is not None:
+                if chain.busy():
+                    return None
+                self._chains.move_to_end(key)
+                return chain.claim()
+            if key in self._refused:
+                return None
+            if self._seen.pop(key, None) is None:
+                _remember(self._seen, key)
+                return None
+            chain = self._chains[key] = _Chain(inputs)
+            while len(self._chains) > REPLAY_CHAINS:
+                self._chains.popitem(last=False)
+            token = chain.claim()
+        try:
+            with _CAPTURE_LOCK:
+                _capture(chain, qp)
+        except RuntimeError as e:
+            logger.info(f"beam search chain of {qp.shape[0]} queries "
+                        f"({plan.variant}/{plan.mode}) not captured, runs "
+                        f"eager: {e}")
+            with self._lock:
+                if self._chains.get(key) is chain:
+                    del self._chains[key]
+                _remember(self._refused, key)
+            return None
+        metrics.inc("cuda_graph_captures_total")
+        return token
+
+
+def _remember(keys: "OrderedDict", key) -> None:
+    keys[key] = True
+    while len(keys) > REPLAY_SIGHTINGS:
+        keys.popitem(last=False)
 
 
 def _exact_rerank_device(q_f32: torch.Tensor, table_f32: torch.Tensor,

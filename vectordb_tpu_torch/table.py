@@ -156,6 +156,9 @@ class Table:
         # Per dense-vector-field ANN graph (built by rebuild()).
         self.graphs: Dict[str, Any] = {}
         self.graph_lock = threading.Lock()
+        # The captured device chains of graph queries (ops/beam), dropped
+        # with the graph or the device mask they read.
+        self._replays = beam_ops.ReplayCache()
         self._graph_built_rows: Dict[str, int] = {}
         # Serializes rebuild() callers.
         self._rebuild_lock = threading.Lock()
@@ -1206,26 +1209,32 @@ class Table:
             max_iters = (bw if boost > 1
                          else self._field_iters(field_name, bw, iters))
             fused, fscale = self._fused_view(graph)
-            h["dev"] = beam_ops.beam_search_topk(
-                torch.from_numpy(qp).to(store.buf.device), graph.table,
-                graph.norms,
+            # A cacheable mask is the same tensor at each query of this
+            # mutation version (with a device filter: of this filter), so
+            # the chain can repeat; a host-folded filter's is made anew.
+            h["dev"] = self._replays.search_topk(
+                qp, graph.table, graph.norms,
                 graph.adjacency_traversal(self.config.beam_traversal_degree),
                 graph.rep_ids, dm, int(metric), int(bw),
                 int(self.config.beam_expand), int(max_iters), 32, int(term),
                 int(k_out),
                 0 if fused is not None else int(self.config.beam_compact),
-                fused=fused, scale=fscale)
+                fused=fused, scale=fscale, repeats=mask_cacheable)
             h["mode"] = "graph"
             h["graph_rows"] = graph.num_rows
             return h
 
     def fetch_dense_search(self, h):
-        """Stage 2a: blocking copy of the dispatched results to the host.
-        Host-only work stays in collect_dense_search, so a pipelining
-        caller dispatches the NEXT batch between fetch and collect."""
+        """Stage 2a: blocking copy of the dispatched results to the host
+        (of a replayed graph chain: a wait on its event and a copy out of
+        its pinned buffers). Host-only work stays in collect_dense_search,
+        so a pipelining caller dispatches the NEXT batch between fetch and
+        collect."""
         if "dev" in h and "dev_host" not in h:
             with span("vdb.table.fetch"):
-                host = tuple(t.cpu().numpy() for t in h["dev"])
+                dev = h["dev"]
+                host = (dev.fetch() if isinstance(dev, beam_ops.Replayed)
+                        else tuple(t.cpu().numpy() for t in dev))
             # A graph walk ran the real queries only: the padding rows,
             # copies of query 0, get its result.
             pad = h["queries"].shape[0] - host[0].shape[0]
@@ -1392,6 +1401,8 @@ class Table:
         mask[row_start:m] = valid[row_start:m]
         dm = torch.from_numpy(mask).to(device)
         if cacheable:
+            if key in cache:  # a new version: chains read the old mask
+                self._replays.clear()
             cache[key] = (ver, dm)
         return dm
 
@@ -1828,6 +1839,7 @@ class Table:
             else:
                 self.graphs[field_name] = g
             self._graph_built_rows[field_name] = g.num_rows
+            self._replays.clear()
 
     def rebuild(self) -> Status:
         with self._rebuild_lock:
@@ -1963,6 +1975,7 @@ class Table:
         for sf in self.sharded_fields.values():
             sf.release()
         self.segment.release_device()
+        self._replays.clear()
         self._mask_cache = {}
         self._device_filter_cache = {}
         self._sparse_cache = {}
