@@ -1273,6 +1273,22 @@ def test_beam_kernel_single_query_walks_in_one_launch(cuda_device, metric,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("fused", [False, True])
+def test_beam_kernel_wide_cosine_rows(cuda_device, b, fused):
+    """Rows of 1,536 columns, COSINE: 192 16-byte chunks a bf16 row (96 a
+    fused int8 slice), past the 32 of a lane group, so each lane scores the
+    rest of its chunks in turn; only the block variant takes them."""
+    kw = _walk_case(12, 2048, 1536, 48, b, 64, MetricType.COSINE, fused, 16)
+    state, launched = _walk_both(kw, cuda_device)
+    assert {p.variant for p in launched} == {"block"}
+    assert {p.mode for p in launched} == (
+        {"walk"} if b == 1 else {"walk", "iteration"})
+    _launches_ok(launched, 16)
+    assert int((state["visited"] >= 0).sum()) > 4 * b
+
+
+@pytest.mark.gpu
 def test_beam_kernel_rejects_what_it_does_not_take(cuda_device):
     kw = _walk_case(5, 500, 32, 16, 4, 16, MetricType.EUCLIDEAN, False, 4)
     kw = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
@@ -1382,6 +1398,35 @@ def test_replayed_query_equals_eager(cuda_device, tmp_path, monkeypatch,
     for a, b in zip(got, want):
         _assert_bits(a, b)
     assert len(table._replays) == 1
+
+
+def _walk_counts():
+    from vectordb_tpu_torch.metrics import metrics
+    c = metrics.snapshot()["counters"]
+    return np.array([int(c.get(k, 0)) for k in ("beam_walks_split_total",
+                                                 "beam_walks_fused_total")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_replayed_wide_cosine_query_equals_eager(cuda_device, tmp_path,
+                                                 monkeypatch, fused):
+    """Rows of 1,536 columns, COSINE: the replayed chain equals the eager
+    one bit for bit on the split path and on the fused one, and every walk
+    counts on the path it took."""
+    table, _, qs = _replay_table(tmp_path, MetricType.COSINE, fused,
+                                 dim=1536)
+    split = table._fused_view(table.graphs["Emb"])[0] is None
+    assert split == (fused == "off")
+    want = _eager(monkeypatch, lambda: [_dev_out(table, qs[i:i + 1])
+                                        for i in range(4)])
+    before, walks = _replay_counts(), _walk_counts()
+    got = [_dev_out(table, qs[i:i + 1]) for i in range(4)]
+    assert (_replay_counts() - before).tolist() == [3, 1, 1]
+    assert (_walk_counts() - walks).tolist() == ([4, 0] if split
+                                                 else [0, 4])
+    for a, b in zip(got, want):
+        _assert_bits(a, b)
 
 
 @pytest.mark.gpu

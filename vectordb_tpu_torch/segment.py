@@ -39,6 +39,9 @@ from .utils import atomic_write_bytes
 # Device buffers grow by doubling from this floor, so a table's capacity
 # (and every kernel shape derived from it) changes only O(log N) times.
 MIN_DEVICE_CAPACITY = 4096
+# Rows a block of a pass over a whole column (ingest normalization, a
+# store's upload): bounds its temporaries and staging copies.
+BLOCK_ROWS = 1 << 16
 
 SPARSE_INDICES_KEY = "indices"
 SPARSE_VALUES_KEY = "values"
@@ -48,6 +51,17 @@ SNAPSHOT_MAGIC = b"VSNP1\x00"
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _normalize_rows(mat: np.ndarray) -> None:
+    """Scales each row of a float32 [n, D] array to unit length in place,
+    a block of rows at a time; a row of norm 1e-5 or less stays as it is.
+    The same arithmetic, row by row, as np.where(nrm > 1e-5, mat /
+    np.maximum(nrm, 1e-30), mat)."""
+    for s in range(0, mat.shape[0], BLOCK_ROWS):
+        blk = mat[s:s + BLOCK_ROWS]
+        nrm = np.linalg.norm(blk, axis=1, keepdims=True)
+        np.divide(blk, np.maximum(nrm, 1e-30), out=blk, where=nrm > 1e-5)
 
 
 def column_device_dtype(col: np.ndarray):
@@ -83,10 +97,14 @@ class DeviceVectorStore:
         while new_cap < needed:
             new_cap *= 2
         # Re-upload everything below `needed` into the fresh buffer; amortized
-        # O(1) per row, same policy as a growable array.
-        padded = np.zeros((new_cap, self.dim_padded), dtype=np.float32)
-        padded[:needed, : self.dim] = host[:needed]
-        self.buf = torch.from_numpy(padded).to(self.device).to(self.dtype)
+        # O(1) per row, same policy as a growable array. Block by block:
+        # copy_ rounds f32 -> bf16 on the device, to nearest-even.
+        self.buf = None  # the old buffer's memory goes first
+        self.buf = torch.zeros((new_cap, self.dim_padded), dtype=self.dtype,
+                               device=self.device)
+        for s in range(0, needed, BLOCK_ROWS):
+            e = min(s + BLOCK_ROWS, needed)
+            self.buf[s:e, : self.dim].copy_(torch.from_numpy(host[s:e]))
         nrm = np.zeros((new_cap,), dtype=np.float32)
         nrm[:needed] = norms_host[:needed]
         self.norms = torch.from_numpy(nrm).to(self.device)
@@ -439,17 +457,15 @@ class TableSegment:
                             f"Field {name} expects [n, "
                             f"{f.vector_dimension}] vectors, got "
                             f"{mat.shape}.")
-                    mat = mat[keep]
+                    dst = self.dense_host[name][start:stop]
+                    dst[...] = mat if kept == n_rows else mat[keep]
                     if f.metric_type == MetricType.COSINE:
                         # Ingest-time normalization (reference
                         # table_segment_mvp.cpp:564-587); idempotent, so
                         # WAL replay of already-normalized batches is safe.
-                        nrm = np.linalg.norm(mat, axis=1, keepdims=True)
-                        mat = np.where(nrm > 1e-5,
-                                       mat / np.maximum(nrm, 1e-30), mat)
-                    self.dense_host[name][start:stop] = mat
+                        _normalize_rows(dst)
                     self.dense_norms[name][start:stop] = np.einsum(
-                        "nd,nd->n", mat, mat).astype(np.float32)
+                        "nd,nd->n", dst, dst).astype(np.float32)
                 elif ft in SPARSE_VECTOR_TYPES:
                     kept_vals = [v for v, k in zip(col, keep) if k]
                     if f.metric_type == MetricType.COSINE:

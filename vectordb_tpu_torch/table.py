@@ -258,10 +258,12 @@ class Table:
         primitives as arrays, strings as lists)."""
         from .colcodec import encode_columns
 
-        payload = encode_columns(columns, n_rows,
-                                 self.segment.column_kinds())
+        # Encoded only for a log that writes it: the payload copies every
+        # column (6 GB for 1M rows of 1,536 floats).
         wal_id = self.wal.write_binary_entry(
-            BIN_UPSERT if upsert else BIN_INSERT, payload)
+            BIN_UPSERT if upsert else BIN_INSERT,
+            encode_columns(columns, n_rows, self.segment.column_kinds())
+            if self.wal.writing() else b"")
         return self.segment.insert_columns(
             columns, n_rows, wal_id, upsert=upsert,
             embedding_service=self.embedding_service, headers=headers,
@@ -311,7 +313,8 @@ class Table:
 
         metric = self.metric_map[field_name]
         if metric == MetricType.COSINE:
-            query_data = self._normalized(query_data)
+            with span("vdb.table.normalize"):
+                query_data = self._normalized(query_data)
 
         ids, dists = self._search_ids(field_name, query_data, limit,
                                       filter_nodes, is_sparse_query)
@@ -1209,6 +1212,8 @@ class Table:
             max_iters = (bw if boost > 1
                          else self._field_iters(field_name, bw, iters))
             fused, fscale = self._fused_view(graph)
+            metrics.inc("beam_walks_fused_total" if fused is not None
+                        else "beam_walks_split_total", b_real)
             # A cacheable mask is the same tensor at each query of this
             # mutation version (with a device filter: of this filter), so
             # the chain can repeat; a host-folded filter's is made anew.

@@ -112,6 +112,11 @@ class WriteAheadLog:
     def set_enabled(self, enabled: bool) -> None:
         self.enabled = enabled
 
+    def writing(self) -> bool:
+        """Whether an entry would be written: the log is enabled and this
+        node leads."""
+        return self.enabled and self.is_leader
+
     def set_leader(self, leader: bool) -> None:
         self.is_leader = leader
         if leader:
@@ -119,7 +124,7 @@ class WriteAheadLog:
 
     def write_entry(self, entry_type: int, entry: str) -> int:
         """Append one entry; returns its global id (WriteEntry, wal:71-91)."""
-        if not self.enabled or not self.is_leader:
+        if not self.writing():
             return self.counter.get()
         with self._write_lock:
             if time.time() - self._last_rotation > ROTATION_INTERVAL_S:
@@ -133,7 +138,7 @@ class WriteAheadLog:
     def write_binary_entry(self, entry_type: int, payload: bytes) -> int:
         """Append a binary (colcodec) entry: CRC-framed, flushed. The
         native C++ appender handles framing+flush when built."""
-        if not self.enabled or not self.is_leader:
+        if not self.writing():
             return self.counter.get()
         with self._write_lock:
             if time.time() - self._last_rotation > ROTATION_INTERVAL_S:
