@@ -691,6 +691,77 @@ def test_sparse_scores_on_the_card_match_the_cpu_route(cuda_device, metric):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+def test_sparse_search_on_the_card_matches_float64(cuda_device, tmp_path,
+                                                   metric):
+    """Table.search over 100,000 Zipf(1.1) rows (215 draws over 30,109
+    terms, ~126 distinct a row), 8 queries of 49 terms of a stored row: the
+    kernel's candidates re-ranked in one pass over the CSR snapshot give the
+    float64 oracle's top 10 (a swap only between rows whose oracle
+    distances lie within 1e-6) at its distances, rtol 1e-6; every candidate
+    counted in sparse_rerank_rows_total."""
+    from vectordb_tpu_torch.metrics import metrics
+    from vectordb_tpu_torch.ops import sparse
+
+    rng = np.random.default_rng(17)
+    n, vocab = 100_000, 30_109
+    cdf = np.cumsum(np.arange(1, vocab + 1, dtype=np.float64) ** -1.1)
+    perm = rng.permutation(vocab)
+    col = []
+    for s in range(0, n, 10_000):
+        t = np.sort(perm[np.minimum(np.searchsorted(
+            cdf, rng.random((10_000, 215)) * cdf[-1]), vocab - 1)], axis=1)
+        for row in t:
+            idx = row[np.r_[True, row[1:] != row[:-1]]].astype(np.int64)
+            col.append(sparse.SparseVector(
+                idx, rng.gamma(1.0, 1.0, len(idx)).astype(np.float32)))
+    vdb.set_device("cuda")
+    assert vdb.load_db("z", str(tmp_path / "z")) == 0
+    vdb.use_db("z")
+    vdb.create_table("t", [
+        {"name": "ID", "dataType": "INT", "primaryKey": True},
+        {"name": "S", "dataType": "SPARSE_VECTOR_FLOAT",
+         "dimensions": vocab, "metricType": metric.name}])
+    code, res = vdb.insert_columns("t", {"ID": np.arange(n), "S": col})
+    assert code == 0 and res["inserted"] == n
+    stored = vdb._db.databases["z"].tables["t"].segment.sparse_cols["S"][:n]
+    lens = np.array([len(v.indices) for v in stored])
+    row_of = np.repeat(np.arange(n), lens)
+    x_idx = np.concatenate([v.indices for v in stored])
+    x_val = np.concatenate([v.values for v in stored]).astype(np.float64)
+    xn = np.bincount(row_of, weights=x_val * x_val, minlength=n)
+    name = "sparse_rerank_rows_total"
+    before = metrics.snapshot()["counters"].get(name, 0)
+    sparse.reset_launches()
+    for r in rng.choice(np.nonzero(lens >= 49)[0], 8, replace=False):
+        qi = np.sort(rng.choice(stored[r].indices, 49, replace=False))
+        qv = rng.gamma(1.0, 1.0, 49).astype(np.float32)
+        q = sparse.SparseVector(qi, qv)
+        if metric == MetricType.COSINE:
+            q = q.normalized()
+        qd = np.zeros(vocab)
+        qd[q.indices] = q.values
+        ip = np.bincount(row_of, weights=qd[x_idx] * x_val, minlength=n)
+        qn = float(np.dot(q.values.astype(np.float64),
+                          q.values.astype(np.float64)))
+        od = (qn + xn - 2.0 * ip if metric == MetricType.EUCLIDEAN
+              else 1.0 - ip if metric == MetricType.COSINE else -ip)
+        want = np.argsort(od, kind="stable")[:10]
+        code, rows = vdb.query("t", "S", {"indices": qi.tolist(),
+                                          "values": qv.tolist()},
+                               ["ID"], 10, "", True)
+        assert code == 0 and len(rows) == 10
+        got = np.array([row["ID"] for row in rows])
+        assert len(set(got.tolist())) == 10
+        assert all(g == w or abs(od[g] - od[w]) <= 1e-6
+                   for g, w in zip(got, want)), (got, want)
+        np.testing.assert_allclose([row["@distance"] for row in rows],
+                                   od[got], rtol=1e-6)
+    assert sparse.launches == 8
+    assert metrics.snapshot()["counters"].get(name, 0) - before == 8 * 42
+
+
 def _zipf_csr(dev, n_rows, n_terms, seed):
     """A CSR column on the card: Zipf(1.5) row lengths up to 3,000, then
     rows of 0, 1, 2, 3, 1,025 and 5,000 nnz and trailing empty rows, so row

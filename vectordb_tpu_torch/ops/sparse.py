@@ -6,15 +6,16 @@ vector is a pair of parallel arrays (indices ascending, values), and
 EUCLIDEAN / COSINE / DOT_PRODUCT distances follow the same conventions as
 dense (squared L2; 1 - ip with ingest-time normalization; -ip).
 
-Host numpy scores individual pairs (the exact re-rank of a sparse query's
-candidates); SparseColumnIndex scores a query against every row of a
-column on the engine's device: the CSR arrays are uploaded once per
-snapshot, each query uploads its dense scatter, and `csr_ip` reads the
-scatter at every stored index and sums each row's products in one pass:
-on a CUDA tensor the hand-written kernel csrc/csr_ip.cu through the
-PyTorch operator `torch.ops.vdb.csr_ip` (csrc/csr_ip_op.cpp), on a CPU
-tensor `csr_ip_ref`, its plain version (clamp, gather, multiply,
-torch.segment_reduce).
+Host numpy scores individual pairs (`distance`, the plain version of the
+re-rank); SparseColumnIndex re-ranks a query's candidates in one pass
+over its host CSR arrays (`candidate_distances`), and scores a query
+against every row of a column on the engine's device: the CSR arrays are
+uploaded once per snapshot, each query uploads its dense scatter, and
+`csr_ip` reads the scatter at every stored index and sums each row's
+products in one pass: on a CUDA tensor the hand-written kernel
+csrc/csr_ip.cu through the PyTorch operator `torch.ops.vdb.csr_ip`
+(csrc/csr_ip_op.cpp), on a CPU tensor `csr_ip_ref`, its plain version
+(clamp, gather, multiply, torch.segment_reduce).
 
 Divergences from the JAX package, on purpose:
 - JAX sums a row's products as the difference of one f32 prefix sum over
@@ -267,9 +268,10 @@ class SparseColumnIndex:
     """
 
     def __init__(self, column: Sequence[Optional[SparseVector]], n_rows: int):
-        idx_parts, val_parts, offsets = [], [], [0]
+        idx_parts, val_parts, offsets, has_vector = [], [], [0], []
         for r in range(n_rows):
             v = column[r]
+            has_vector.append(v is not None)
             if v is not None and len(v.indices):
                 idx_parts.append(v.indices)
                 val_parts.append(v.values)
@@ -281,6 +283,9 @@ class SparseColumnIndex:
         self.values = (np.concatenate(val_parts, dtype=np.float32)
                        if val_parts else np.zeros(0, np.float32))
         self.offsets = np.asarray(offsets, dtype=np.int64)
+        # A row without a vector and an empty one share their offsets; only
+        # the first is +inf to a query.
+        self.has_vector = np.asarray(has_vector, dtype=bool)
         self.n_rows = n_rows
         # One past the largest stored index: a query's terms outside [0,
         # n_terms) match no row, so no scatter holds them.
@@ -338,6 +343,53 @@ class SparseColumnIndex:
         """Distances of the query to every row, [n_rows] f32 on the host
         (device_scores, fetched)."""
         return self.device_scores(query, metric).cpu().numpy()
+
+    def candidate_distances(self, query: SparseVector, rows: np.ndarray,
+                            metric: MetricType) -> np.ndarray:
+        """Exact distances of the query to the stored vectors of `rows`
+        (int64 row ids), float64, +inf for a row without a vector: the
+        re-rank of a query's candidates in one pass over the host CSR
+        arrays. The rows' segments are gathered as one flat position array;
+        each stored term is looked up in the query's dense scatter over its
+        terms in [0, n_terms), whose trailing zero the stored terms past the
+        query's largest read (a clipped take); the products are formed and
+        summed a row by np.add.reduceat in float64. A term the query
+        repeats counts once, with its first value, as in the merge-join of
+        `distance`. The same terms match as there; `distance` sums them in
+        float32, this pass in float64, the EUCLIDEAN norms of query and row
+        included."""
+        starts = self.offsets[rows]
+        lens = self.offsets[rows + 1] - starts
+        seg = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(lens, out=seg[1:])
+        pos = np.repeat(starts - seg[:-1], lens)
+        pos += np.arange(seg[-1])
+        val = self.values[pos]
+        q = query.sorted()
+        lo, hi = np.searchsorted(q.indices, (0, self.n_terms))
+        qi, qv = q.indices[lo:hi], q.values[lo:hi]
+        repeated = qi[1:] == qi[:-1]
+        if repeated.any():
+            first = np.concatenate(([True], ~repeated))
+            qi, qv = qi[first], qv[first]
+        if len(qi):
+            qdense = np.zeros(int(qi[-1]) + 2, dtype=np.float32)
+            qdense[qi] = qv
+            ip = _row_sums(np.multiply(
+                qdense.take(self.indices[pos], mode="clip"), val,
+                dtype=np.float64), seg)
+        else:
+            ip = np.zeros(len(rows), dtype=np.float64)
+        if metric == MetricType.EUCLIDEAN:
+            qv64 = query.values.astype(np.float64)
+            d = (float(qv64 @ qv64)
+                 + _row_sums(np.square(val, dtype=np.float64), seg) - 2.0 * ip)
+        elif metric == MetricType.COSINE:
+            d = 1.0 - ip
+        else:
+            d = -ip
+        d[~self.has_vector[rows]] = np.inf
+        return d
 
     def scores_host(self, query: SparseVector,
                     metric: MetricType) -> np.ndarray:

@@ -1476,20 +1476,27 @@ class Table:
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Sparse search: every row scored on the device, the k +
         RERANK_SLACK smallest distances of the rows `valid` keeps selected
-        there (torch.topk, the rest at +inf), then the exact merge-join
-        distances of those candidates on the host, ascending (ties to the
-        lower row id). Rows without a vector rank last (+inf).
+        there (torch.topk, the rest at +inf), then the exact distances of
+        those candidates on the host in one pass over the column's CSR
+        snapshot (SparseColumnIndex.candidate_distances), ascending (ties
+        to the lower row id). Rows without a vector rank last (+inf); the
+        counter sparse_rerank_rows_total counts the rows re-ranked.
         mask_cacheable: `valid` is the pure validity mask, whose device
         copy is reused while the mutation version holds.
 
         The query is normalised here, where Table.search and hybrid_search
-        both pass: its terms are sorted (the merge-join's binary search
-        assumes it), and the device scan takes only the terms in [0,
-        dimensions), which ingest lets no stored vector exceed, so a
+        both pass: its terms are sorted (a term it repeats is re-ranked
+        with its first value, as in the merge-join), and the device scan
+        takes only the terms in [0, dimensions), which ingest lets no
+        stored vector exceed, so a
         negative or huge term id neither corrupts nor sizes the scatter.
         The re-rank scores the whole sorted query, so EUCLIDEAN keeps its
-        norm. Divergence: the JAX package re-ranks the query as given, and
-        reports wrong distances for an unsorted one."""
+        norm. Divergences: the JAX package re-ranks the query as given, and
+        reports wrong distances for an unsorted one; its merge-join, like
+        the port's plain version (sparse_ops.distance), sums a row's
+        products in float32, where the pass sums them in float64: the same
+        terms, rounded once less, so a distance moves by at most a float32
+        rounding of the inner product."""
         with span("vdb.table.dispatch"):
             n_valid = int(np.count_nonzero(valid))
             if n_valid == 0:
@@ -1508,11 +1515,8 @@ class Table:
         with span("vdb.table.fetch"):
             cand = np.sort(top.cpu().numpy()).astype(np.int64)
         with span("vdb.table.rerank"):
-            col = self.segment.sparse_cols[field_name]
-            exact = np.asarray([
-                sparse_ops.distance(query, col[r], metric)
-                if col[r] is not None else np.inf
-                for r in cand], dtype=np.float64)
+            exact = index.candidate_distances(query, cand, metric)
+            metrics.inc("sparse_rerank_rows_total", len(cand))
             order = np.argsort(exact, kind="stable")[:k]
         return cand[order], exact[order]
 
