@@ -1,10 +1,12 @@
 """The row-gather kernel as built against another source of it, on one CUDA
 card, in device time only.
 
-    python -m vectordb_tpu_torch.gather_variants [--baseline FILE.cu]
+    python3 gather_variants.py [--baseline FILE.cu]
 
-Builds csrc/gather_rows.cu and, with --baseline, another source with the
-same `vdb_gather_rows` C entry point (an earlier design of the kernel, say)
+Run it from the root of a checkout, as beam_profile.py: it imports that
+checkout's vectordb_tpu_torch. Builds vectordb_tpu_torch/csrc/
+gather_rows.cu and, with --baseline, another source with the same
+`vdb_gather_rows` C entry point (an earlier design of the kernel, say)
 as plain-C libraries (nvcc, sm_90a, into _build/; one nvcc each, started
 together). At each shape of ops/gather.MAIN_PATH_SHAPES (ids from -2 to
 N + 1, so the clamp works) both are held bit for bit against
@@ -27,8 +29,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from . import _cuda_build
-from .ops import gather, partial_min
+from vectordb_tpu_torch import _cuda_build
+from vectordb_tpu_torch.ops import gather, partial_min
 
 GRAPH_LAUNCHES = 20
 

@@ -51,8 +51,8 @@
 //   * The survivor planes are staged in shared memory and written by TMA
 //     stores as whole 256-byte rows, not as 32-byte pieces of 16 rows.
 // The fold, not the product, sets the pace: at flat-serve the scan takes
-// 2.29 ms, 1.60 with the product switched off, 0.50 with the fold switched
-// off (partial_min_attribution.py on an NVIDIA H100 80GB HBM3, 700 W;
+// 2.29 ms, 1.60 with the product compiled out of a copy of this source,
+// 0.50 with the fold compiled out (an NVIDIA H100 80GB HBM3, 700 W;
 // PERF.md). The f32 path (is_bf16 = 0)
 // stays on the CUDA cores: tensor cores would need TF32, which changes
 // results; the main path never takes it.
@@ -315,9 +315,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 // d[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da,
                                                uint64_t db, int accumulate) {
-#ifdef VDB_ATTRIBUTION_NO_PRODUCT  // partial_min_attribution.py only
-  return;
-#endif
   asm volatile(
       "{\n\t.reg .pred p;\n\t"
       "setp.ne.b32 p, %34, 0;\n\t"
@@ -400,9 +397,6 @@ __device__ __forceinline__ void fold_stripe(FoldState& f,
                                             const float (&acc)[32],
                                             const float2 (&tv)[8], int s,
                                             int cb, bool exclude_self) {
-#ifdef VDB_ATTRIBUTION_NO_FOLD  // partial_min_attribution.py only
-  return;
-#endif
   if (exclude_self && cb < f.self0 + kBM && f.self0 < cb + kBN)
     fold_cells<true>(f, acc, tv, (uint32_t)s, cb);
   else

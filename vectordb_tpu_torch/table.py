@@ -365,8 +365,7 @@ class Table:
             # host mask.
             valid = seg.valid_mask()
             filter_ctx = None
-            boost = 1
-            pre_filter = False
+            boost, pre_filter = 1, False
             if compiler is not None and not uses_distance:
                 if not is_sparse:
                     filter_ctx = self._device_filter(filter_nodes, compiler)
@@ -377,11 +376,10 @@ class Table:
                     # cutover, the exact masked scan past it.
                     n_pure = int(np.count_nonzero(valid))
                     valid &= compiler.mask(n_rows=n)
-                    n_match = int(np.count_nonzero(valid))
-                    if n_match * self.SELECTIVE_FLAT_RATIO < n_pure:
-                        pre_filter = True
-                    else:
-                        boost = self._sel_boost(n_pure, n_match)
+                    sel = self._selectivity(n_pure,
+                                            int(np.count_nonzero(valid)))
+                    pre_filter = sel is None
+                    boost = sel or 1
 
         if uses_distance:
             k_cand = min(max(limit, self.config.master_queue_size), n)
@@ -499,17 +497,59 @@ class Table:
             b *= 2
         return b
 
+    @classmethod
+    def _selectivity(cls, n_alive: int, n_match: int) -> Optional[int]:
+        """The selectivity gate of a filter keeping n_match of n_alive
+        rows: None when it keeps fewer than 1/SELECTIVE_FLAT_RATIO of them
+        (the exact masked flat scan serves), else the beam-width boost."""
+        if n_match * cls.SELECTIVE_FLAT_RATIO < n_alive:
+            return None
+        return cls._sel_boost(n_alive, n_match)
+
+    def _graph_serves(self, graph, n: int, pre_filter: bool = False) -> bool:
+        """Whether a graph walk serves a table of n rows: a graph exists,
+        n reaches BruteForceThreshold, and neither PreFilter nor the
+        caller's pre_filter (a host-folded filter past the selectivity
+        gate) asks for the exact scan."""
+        return (graph is not None
+                and n >= self.config.brute_force_threshold
+                and not self.config.pre_filter and not pre_filter)
+
+    def _walk_params(self, field_name: str, ef: Optional[int], boost: int,
+                     width_floor: int, term_floor: int,
+                     iters: Optional[int] = None) -> Tuple[int, int, int]:
+        """(beam width, termination window, depth cap) of a graph walk.
+        The width is the field's ef times the selectivity boost, at least
+        width_floor. The window, BeamTermWidth at least term_floor, scales
+        with the boost too: a filtered walk must reach the filtered-rank-k
+        neighbours before it stops; a boosted one also keeps at least a
+        quarter of its width. A boosted walk goes full depth, any other to
+        _field_iters' cap. Each route passes its own floors."""
+        bw = max(self._field_ef(field_name, ef) * boost, width_floor)
+        term = min(max(self.config.beam_term_width, term_floor) * boost, bw)
+        if boost > 1:
+            return bw, max(term, bw // 4), bw
+        return bw, term, self._field_iters(field_name, bw, iters)
+
+    def _fused_budget(self) -> Optional[Tuple[int, bool]]:
+        """FusedTraversal as (byte budget, forced) of the fused int8
+        table, or None when it is off: "auto" holds the table to
+        FusedMaxBytes, "on" lifts the budget and forces it."""
+        mode = getattr(self.config, "fused_traversal", "auto")
+        if mode == "off":
+            return None
+        return (self.config.fused_max_bytes if mode == "auto"
+                else (1 << 60)), mode == "on"
+
     def _fused_view(self, graph) -> Tuple[Any, Any]:
         """(fused int8 table, dequant scale) for the fused traversal, or
         (None, None) when FusedTraversal or the memory gates turn it off
         (the split gather path then serves)."""
-        mode = getattr(self.config, "fused_traversal", "auto")
-        if mode == "off":
+        fb = self._fused_budget()
+        if fb is None:
             return None, None
-        budget = (self.config.fused_max_bytes if mode == "auto"
-                  else (1 << 60))
         return graph.fused_traversal(self.config.beam_traversal_degree,
-                                     budget, forced=(mode == "on"))
+                                     fb[0], forced=fb[1])
 
     def _field_ef(self, field_name: str, ef: Optional[int] = None) -> int:
         """Beam width: explicit arg > tuned override > SearchEf."""
@@ -632,8 +672,7 @@ class Table:
             if sf is not None:
                 # The sharded flat scan: a single-device view would copy
                 # the whole table onto one device.
-                sf.sync(seg.dense_host[fname], seg.dense_norms[fname],
-                        seg.record_number)
+                self._sync_shards(sf, fname, seg.record_number)
                 gt_cand = sf.search(
                     self._pad_queries(sf.store, queries), valid, metric,
                     min(kk + RERANK_SLACK, alive.size))
@@ -819,12 +858,11 @@ class Table:
         them."""
         n = self.segment.record_number
         g_max = max(1, int(self.config.query_group_size))
+        grouped = g_max > 1 and queries.shape[0] > batch
         sf = self.sharded_fields.get(field_name)
         if sf is not None:
-            if (g_max > 1 and queries.shape[0] > batch
-                    and sf.graph is not None and filter_ctx is None
-                    and n >= self.config.brute_force_threshold
-                    and not self.config.pre_filter):
+            if (grouped and filter_ctx is None
+                    and self._graph_serves(sf.graph, n)):
                 return self._grouped_sharded(sf, field_name, queries, valid,
                                              metric, k, batch, g_max,
                                              mask_cacheable, ef)
@@ -838,9 +876,8 @@ class Table:
                     fs, field_name, queries, valid, metric, k, batch,
                     g_max, mask_cacheable, filter_ctx)
         graph = self.graphs.get(field_name)
-        if (g_max > 1 and queries.shape[0] > batch and graph is not None
-                and n >= self.config.brute_force_threshold
-                and not self.config.pre_filter and graph.num_rows >= n):
+        if (grouped and self._graph_serves(graph, n)
+                and graph.num_rows >= n):
             return self._grouped_graph(graph, field_name, queries, valid,
                                        metric, k, batch, g_max,
                                        mask_cacheable, filter_ctx, ef)
@@ -870,14 +907,15 @@ class Table:
         k_cand = min(k_eff + GRAPH_SLACK, graph.num_rows)
         boost = 1
         if filter_ctx is not None:
-            n_match = filter_ctx.device.match_count(dm)
-            if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
+            boost = self._selectivity(n_alive,
+                                      filter_ctx.device.match_count(dm))
+            if boost is None:
                 return self._pipelined_batches(field_name, queries, valid,
                                                metric, k, batch,
                                                mask_cacheable, filter_ctx,
                                                ef)
-            boost = self._sel_boost(n_alive, n_match)
-        bw = max(self._field_ef(field_name, ef) * boost, k_cand)
+        bw, term, max_iters = self._walk_params(field_name, ef, boost,
+                                                k_cand, k_eff)
         adj = graph.adjacency_traversal(self.config.beam_traversal_degree)
         fused, fscale = self._fused_view(graph)
         tf32 = None
@@ -885,30 +923,18 @@ class Table:
             budget = (self.config.device_rerank_max_bytes
                       if self.config.device_rerank == "auto" else (1 << 60))
             tf32 = graph.table_f32(budget)
-        term = int(min(max(self.config.beam_term_width, k_eff) * boost, bw))
-        if boost > 1:
-            term = int(min(max(term, bw // 4), bw))
-        max_iters = bw if boost > 1 else self._field_iters(field_name, bw)
         wire = self._query_wire(field_name)
         q_total = queries.shape[0]
         out_w = k_eff if tf32 is not None else k_cand
         ids_all = np.empty((q_total, out_w), dtype=np.int64)
         d_all = np.empty((q_total, out_w), dtype=np.float64)
-        super_chunk = batch * g_max
-        dev = store.buf.device
-        for s in range(0, q_total, super_chunk):
-            qc = queries[s:s + super_chunk]
-            real = qc.shape[0]
-            g = -(-real // batch)
-            qp = np.zeros((g * batch, store.dim_padded), dtype=np.float32)
-            qp[:real, : qc.shape[1]] = qc
-            if real < g * batch:  # pad with a real query (row 0)
-                qp[real:, : qc.shape[1]] = qc[0]
+        for s, real, qp in self._super_chunks(store, queries, batch, g_max):
             packed = beam_ops.beam_search_grouped(
-                torch.from_numpy(qp.reshape(g, batch, -1)).to(dev),
+                torch.from_numpy(qp.reshape(-1, batch, qp.shape[1])).to(
+                    store.buf.device),
                 graph.table, graph.norms, adj, graph.rep_ids, dm, tf32,
-                int(metric), int(bw), int(self.config.beam_expand),
-                int(max_iters), 32, term, int(k_cand), int(k_eff),
+                int(metric), bw, int(self.config.beam_expand), max_iters,
+                32, term, int(k_cand), int(k_eff),
                 0 if fused is not None else int(self.config.beam_compact),
                 fused=fused, scale=fscale, pack_out=True, wire=wire)
             d_h, ids_np = beam_ops.unpack_wire(
@@ -916,20 +942,16 @@ class Table:
                 out_w)
             ids_all[s:s + real] = ids_np
             d_all[s:s + real] = d_h
-        if tf32 is None:
-            # No f32 view on the device: exact re-rank on the host mirror.
-            return self._rerank_candidates(field_name, queries, ids_all,
+        # No f32 view on the device (exact re-rank on the host mirror), or
+        # a selective filter left a row short of k (the top-up's rows are
+        # re-ranked with it).
+        cand = ids_all if tf32 is None else self._full_k(
+            ids_all, k_eff, n_alive, self._flat_exact(
+                field_name, queries, valid, metric, k_eff, n_alive,
+                mask_cacheable, filter_ctx))
+        if tf32 is None or cand is not ids_all:
+            return self._rerank_candidates(field_name, queries, cand,
                                            metric, k_eff, q_total)
-        # Full-k guarantee (rare): a selective filter can leave fewer than
-        # k valid rows in the beam; top up with the exact masked scan.
-        if (ids_all >= 0).sum(axis=1).min() < min(k_eff, n_alive):
-            f_ids, _ = self._flat_candidates(
-                field_name, queries, valid, metric,
-                min(k_eff + RERANK_SLACK, max(n_alive, 1)),
-                mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)
-            return self._rerank_candidates(
-                field_name, queries, np.concatenate([ids_all, f_ids], axis=1),
-                metric, k_eff, q_total)
         return ids_all, d_all
 
     def _grouped_flat_serve(self, fs, field_name: str, queries: np.ndarray,
@@ -959,44 +981,29 @@ class Table:
         q_total = queries.shape[0]
         ids_all = np.empty((q_total, out_w), dtype=np.int64)
         d_all = np.empty((q_total, out_w), dtype=np.float64)
-        super_chunk = batch * g_max
-        dev = store.buf.device
-        for s in range(0, q_total, super_chunk):
-            qc = queries[s:s + super_chunk]
-            real = qc.shape[0]
-            g = -(-real // batch)
-            qp = np.zeros((g * batch, store.dim_padded), dtype=np.float32)
-            qp[:real, : qc.shape[1]] = qc
-            if real < g * batch:  # pad with a real query (row 0)
-                qp[real:, : qc.shape[1]] = qc[0]
+        for s, real, qp in self._super_chunks(store, queries, batch, g_max):
             packed = flat_ops.flat_serve_grouped(
-                torch.from_numpy(qp).to(dev), store.buf, store.norms, dm,
-                tf32, int(metric), int(k_cand), int(k_eff),
+                torch.from_numpy(qp).to(store.buf.device), store.buf,
+                store.norms, dm, tf32, int(metric), int(k_cand), int(k_eff),
                 int(store.capacity), use_pallas=use_kernel, pack_out=True,
                 wire=wire)
             d_h, ids_np = beam_ops.unpack_wire(
                 packed[:real].cpu().numpy(), out_w)
             ids_all[s:s + real] = ids_np
             d_all[s:s + real] = d_h
-        if use_kernel:
-            # Full-k guarantee: a selective filter can leave < k matches
-            # SURVIVING the partial-min fold (group-mates shadow each
-            # other) even when k matches exist — top up with the exact
-            # masked scan. Checked before the host re-rank too (the TPU
-            # package returns from the host re-rank first,
-            # vectordb_tpu/table.py:1189-1193).
-            if (ids_all >= 0).sum(axis=1).min() < min(k_eff, n_alive):
-                f_ids, _ = self._flat_candidates(
-                    field_name, queries, valid, metric,
-                    min(k_eff + RERANK_SLACK, max(n_alive, 1)),
-                    mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)
-                return self._rerank_candidates(
-                    field_name, queries,
-                    np.concatenate([ids_all, f_ids], axis=1),
-                    metric, k_eff, q_total)
-        if tf32 is None:
-            # No f32 view on the device: exact re-rank on the host mirror.
-            return self._rerank_candidates(field_name, queries, ids_all,
+        # Full-k guarantee of the partial-min kernel: a selective filter can
+        # leave < k matches SURVIVING its fold (group-mates shadow each
+        # other) even when k matches exist. Checked before the host re-rank
+        # too (the TPU package returns from the host re-rank first,
+        # vectordb_tpu/table.py:1189-1193).
+        cand = ids_all if not use_kernel else self._full_k(
+            ids_all, k_eff, n_alive, self._flat_exact(
+                field_name, queries, valid, metric, k_eff, n_alive,
+                mask_cacheable, filter_ctx))
+        if tf32 is None or cand is not ids_all:
+            # No f32 view on the device, or topped-up rows: exact re-rank
+            # on the host mirror.
+            return self._rerank_candidates(field_name, queries, cand,
                                            metric, k_eff, q_total)
         return ids_all, d_all
 
@@ -1010,19 +1017,13 @@ class Table:
         package pumps uploads and drains through thread pools for its
         relay. Candidates come back GLOBAL; the exact f32 re-rank runs on
         the host mirror (the shards keep no f32 copy)."""
-        seg = self.segment
-        n = seg.record_number
         n_alive = int(np.count_nonzero(valid))
         k_eff = min(k, max(n_alive, 1))
-        sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
-        ver = None
-        if mask_cacheable:
-            ver = seg.mutation_version
-            valid = seg.valid_mask()
+        self._sync_shards(sf, field_name, self.segment.record_number)
+        ver, valid = self._mask_snapshot(valid, mask_cacheable)
         k_cand = min(k_eff + GRAPH_SLACK, max(n_alive, 1))
-        beam = max(self._field_ef(field_name, ef), k_cand)
-        term = min(max(self.config.beam_term_width, k_cand), beam)
-        it = self._field_iters(field_name, beam)
+        beam, term, max_iters = self._walk_params(field_name, ef, 1,
+                                                  k_cand, k_cand)
         compact = self._sharded_compact(sf)
         fused = self._sharded_fused(sf, field_name)
         # The JAX plane's rule: only int8 changes the sharded upload, a
@@ -1030,42 +1031,93 @@ class Table:
         wire = "int8" if self._query_wire(field_name) == "int8" else "f32"
         q_total = queries.shape[0]
         cand_all = np.full((q_total, k_cand), -1, dtype=np.int64)
-        super_chunk = batch * g_max
-        for s in range(0, q_total, super_chunk):
-            qc = queries[s:s + super_chunk]
-            real = qc.shape[0]
-            g = -(-real // batch)
-            qp = np.zeros((g * batch, sf.store.dim_padded), dtype=np.float32)
-            qp[:real, : qc.shape[1]] = qc
-            if real < g * batch:  # pad with a real query (row 0)
-                qp[real:, : qc.shape[1]] = qc[0]
+        for s, real, qp in self._super_chunks(sf.store, queries, batch,
+                                              g_max):
             packed = sf.launch_grouped(
-                qp.reshape(g, batch, -1), valid, metric, k_cand,
+                qp.reshape(-1, batch, qp.shape[1]), valid, metric, k_cand,
                 beam_width=beam, expand=self.config.beam_expand,
                 term_width=term, mask_version=ver, compact=compact,
-                fused=fused, iters=0 if it >= beam else it, wire=wire)
+                fused=fused, iters=max_iters, wire=wire)
             _, ids_np = beam_ops.unpack_wire(
                 packed.reshape(-1, packed.shape[-1])[:real].cpu().numpy(),
                 k_cand)
             cand_all[s:s + real] = ids_np
-        # Full-k guarantee (rare): top up under-filled rows with the exact
-        # sharded flat scan, a batch at a time.
-        if (cand_all >= 0).sum(axis=1).min() < min(k_eff, n_alive):
+
+        def exact_ids():  # the exact sharded flat scan, a batch at a time
             qp_all = self._pad_queries(sf.store, queries)
-            f_ids = np.concatenate([
+            return np.concatenate([
                 sf.search(qp_all[s:s + batch], valid, metric, k_cand,
                           mask_version=ver)
                 for s in range(0, q_total, batch)], axis=0)
-            cand_all = np.concatenate([cand_all, f_ids], axis=1)
-        return self._rerank_candidates(field_name, queries, cand_all,
-                                       metric, k_eff, q_total)
+
+        return self._rerank_candidates(
+            field_name, queries, self._full_k(cand_all, k_eff, n_alive,
+                                              exact_ids),
+            metric, k_eff, q_total)
 
     @staticmethod
-    def _pad_queries(store, queries: np.ndarray) -> np.ndarray:
-        """[B, D] queries zero-padded to the store's [B, D_pad] f32."""
-        qp = np.zeros((queries.shape[0], store.dim_padded), dtype=np.float32)
-        qp[:, : queries.shape[1]] = queries
+    def _pad_queries(store, queries: np.ndarray,
+                     rows: Optional[int] = None) -> np.ndarray:
+        """[B, D] queries as the store's [rows, D_pad] f32 (rows: B by
+        default): zero columns past D; rows past B copy query 0, a real
+        query, so a padding row walks and stops like it."""
+        b, d = queries.shape
+        qp = np.zeros((rows or b, store.dim_padded), dtype=np.float32)
+        qp[:b, :d] = queries
+        if qp.shape[0] > b:
+            qp[b:, :d] = queries[0]
         return qp
+
+    @classmethod
+    def _super_chunks(cls, store, queries: np.ndarray, batch: int,
+                      g_max: int):
+        """The grouped routes' super-chunks of batch * g_max queries:
+        yields (start, real queries, [g * batch, D_pad] padded f32)."""
+        for s in range(0, queries.shape[0], batch * g_max):
+            qc = queries[s:s + batch * g_max]
+            yield s, qc.shape[0], cls._pad_queries(
+                store, qc, -(-qc.shape[0] // batch) * batch)
+
+    @staticmethod
+    def _full_k(cand: np.ndarray, k_eff: int, n_alive: int, exact_ids
+                ) -> np.ndarray:
+        """Full-k guarantee: when a row of the [B, w] candidate ids holds
+        fewer than min(k_eff, n_alive) valid ones (a selective filter, or
+        rows the walk or the partial-min fold left short), the exact
+        scan's ids (`exact_ids()`, [B, w']) join every row. Otherwise
+        `cand` itself comes back."""
+        if (cand >= 0).sum(axis=1).min() < min(k_eff, n_alive):
+            return np.concatenate([cand, exact_ids()], axis=1)
+        return cand
+
+    def _flat_exact(self, field_name: str, queries: np.ndarray,
+                    valid: np.ndarray, metric: MetricType, k_eff: int,
+                    n_alive: int, mask_cacheable: bool,
+                    filter_ctx: Optional[_FilterCtx]):
+        """_full_k's exact scan on one device: the masked flat scan's
+        k_eff + RERANK_SLACK candidate ids."""
+        return lambda: self._flat_candidates(
+            field_name, queries, valid, metric,
+            min(k_eff + RERANK_SLACK, max(n_alive, 1)),
+            mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)[0]
+
+    def _mask_snapshot(self, valid: np.ndarray, cacheable: bool
+                       ) -> Tuple[Optional[int], np.ndarray]:
+        """(mutation version, validity mask) for a mask cached by version:
+        the version first, then a fresh snapshot. The caller's `valid` may
+        predate a concurrent insert that already bumped the version, and
+        caching that stale mask under the new key would hide the new rows
+        from every later query at this version. (None, valid) for a mask
+        that is not cached."""
+        if not cacheable:
+            return None, valid
+        ver = self.segment.mutation_version
+        return ver, self.segment.valid_mask()
+
+    def _sync_shards(self, sf, field_name: str, n: int) -> None:
+        """Bring the field's shards up to the host mirror's rows [0, n)."""
+        seg = self.segment
+        sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
 
     def _sharded_compact(self, sf) -> int:
         """BeamCompact is tuned against the single-device traversal width
@@ -1081,12 +1133,11 @@ class Table:
     def _sharded_fused(self, sf, field_name: str):
         """(per-shard fused tables, scale) for the sharded traversal, or
         None when FusedTraversal or its gates turn it off."""
-        mode = getattr(self.config, "fused_traversal", "auto")
-        if mode == "off" or sf.graph is None:
+        fb = self._fused_budget()
+        if fb is None or sf.graph is None:
             return None
-        budget = self.config.fused_max_bytes if mode == "auto" else (1 << 60)
         fused = sf.graph.fused_traversal(
-            sf.store, self.segment.dense_host[field_name], budget)
+            sf.store, self.segment.dense_host[field_name], fb[0])
         return None if fused[0] is None else fused
 
     def _pipelined_batches(self, field_name: str, queries: np.ndarray,
@@ -1154,8 +1205,7 @@ class Table:
                 # into `valid` (with pre_filter / boost set by the caller).
                 shard_filter = None
                 if filter_ctx is not None:
-                    sf.sync(seg.dense_host[field_name],
-                            seg.dense_norms[field_name], n)
+                    self._sync_shards(sf, field_name, n)
                     shard_filter = (filter_ctx.device,
                                     sf.device_columns(seg, filter_ctx.device))
                 h["mode"] = "sharded"
@@ -1166,9 +1216,7 @@ class Table:
                     boost=boost, pre_filter=pre_filter, iters=iters,
                     b_real=b_real)
                 return h
-            use_graph = (graph is not None
-                         and n >= self.config.brute_force_threshold
-                         and not self.config.pre_filter and not pre_filter)
+            use_graph = self._graph_serves(graph, n, pre_filter)
             dm = None
             if use_graph and filter_ctx is not None:
                 # Selectivity gate before committing to the graph: count the
@@ -1178,11 +1226,10 @@ class Table:
                 store = seg.device_view(field_name)
                 dm = self._composed_device_mask(store, valid, mask_cacheable,
                                                 filter_ctx)
-                n_match = filter_ctx.device.match_count(dm)
-                if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
-                    use_graph = False
-                else:
-                    boost = max(boost, self._sel_boost(n_alive, n_match))
+                sel = self._selectivity(n_alive,
+                                        filter_ctx.device.match_count(dm))
+                use_graph = sel is not None
+                boost = max(boost, sel or 1)
             if not use_graph:
                 h["dev"] = self._flat_launch(
                     field_name, queries, valid, metric,
@@ -1197,31 +1244,24 @@ class Table:
                 dm = self._composed_device_mask(store, valid, mask_cacheable,
                                                 filter_ctx)
             k_out = min(k_eff + GRAPH_SLACK, graph.num_rows)
+            bw, term, max_iters = self._walk_params(field_name, ef, boost,
+                                                    k_out, k_eff, iters)
+            fused, fscale = self._fused_view(graph)
+            metrics.inc("beam_walks_fused_total" if fused is not None
+                        else "beam_walks_split_total", b_real)
             # Only the real queries walk: the bucket's padding rows copy query
             # 0, so they neither change the batch's stop rule nor need a walk
             # of their own (fetch_dense_search copies query 0's result to
             # them), and a single query walks as a batch of one: one launch.
-            qp = np.zeros((b_real, store.dim_padded), dtype=np.float32)
-            qp[:, : queries.shape[1]] = queries[:b_real]
-            bw = max(self._field_ef(field_name, ef) * boost, k_out)
-            # The termination window scales with the boost too: a filtered walk
-            # must reach the filtered-rank-k neighbours before it stops.
-            term = min(max(self.config.beam_term_width, k_eff) * boost, bw)
-            if boost > 1:
-                term = min(max(term, bw // 4), bw)
-            max_iters = (bw if boost > 1
-                         else self._field_iters(field_name, bw, iters))
-            fused, fscale = self._fused_view(graph)
-            metrics.inc("beam_walks_fused_total" if fused is not None
-                        else "beam_walks_split_total", b_real)
             # A cacheable mask is the same tensor at each query of this
             # mutation version (with a device filter: of this filter), so
             # the chain can repeat; a host-folded filter's is made anew.
             h["dev"] = self._replays.search_topk(
-                qp, graph.table, graph.norms,
+                self._pad_queries(store, queries[:b_real]), graph.table,
+                graph.norms,
                 graph.adjacency_traversal(self.config.beam_traversal_degree),
-                graph.rep_ids, dm, int(metric), int(bw),
-                int(self.config.beam_expand), int(max_iters), 32, int(term),
+                graph.rep_ids, dm, int(metric), bw,
+                int(self.config.beam_expand), max_iters, 32, term,
                 int(k_out),
                 0 if fused is not None else int(self.config.beam_compact),
                 fused=fused, scale=fscale, repeats=mask_cacheable)
@@ -1257,22 +1297,22 @@ class Table:
         with span("vdb.table.rerank"):
             field_name, queries = h["field"], h["queries"]
             valid, metric, k_eff = h["valid"], h["metric"], h["k_eff"]
+            n_alive = h["n_alive"]
             d_h, ids_h = h["dev_host"]
             cand_ids = ids_h.astype(np.int64)
             cand_ids[~np.isfinite(d_h)] = -1
             if h["mode"] == "sharded":
-                # Full-k guarantee: the exact sharded flat scan under the same
-                # masks tops up rows the per-shard beams left short.
+                # The exact sharded flat scan under the same masks tops up
+                # rows the per-shard beams left short.
                 ctx = h["shard_ctx"]
-                if (ctx["use_graph"] and (cand_ids >= 0).sum(axis=1).min()
-                        < min(k_eff, h["n_alive"])):
-                    f_ids = h["sf"].search(
-                        ctx["qp"], ctx["valid"], metric, ctx["k_cand"],
-                        mask_version=ctx["ver"],
-                        shard_filter=ctx["shard_filter"])
-                    cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
+                if ctx["use_graph"]:
+                    cand_ids = self._full_k(
+                        cand_ids, k_eff, n_alive, lambda: h["sf"].search(
+                            ctx["qp"], ctx["valid"], metric, ctx["k_cand"],
+                            mask_version=ctx["ver"],
+                            shard_filter=ctx["shard_filter"]))
             elif h["mode"] == "graph":
-                n, n_alive = h["n"], h["n_alive"]
+                n = h["n"]
                 kw = dict(mask_cacheable=h["mask_cacheable"],
                           filter_ctx=h["filter_ctx"])
                 # Brute-force tail over rows inserted after the graph build.
@@ -1282,13 +1322,10 @@ class Table:
                         min(k_eff + RERANK_SLACK, n),
                         row_start=h["graph_rows"], **kw)
                     cand_ids = np.concatenate([cand_ids, t_ids], axis=1)
-                # Full-k guarantee: when the beam surfaced too few valid rows
-                # (selective filter), top up with the exact masked scan.
-                if (cand_ids >= 0).sum(axis=1).min() < min(k_eff, n_alive):
-                    f_ids, _ = self._flat_candidates(
-                        field_name, queries, valid, metric,
-                        min(k_eff + RERANK_SLACK, max(n_alive, 1)), **kw)
-                    cand_ids = np.concatenate([cand_ids, f_ids], axis=1)
+                cand_ids = self._full_k(
+                    cand_ids, k_eff, n_alive, self._flat_exact(
+                        field_name, queries, valid, metric, k_eff, n_alive,
+                        **kw))
             return self._rerank_candidates(field_name, queries, cand_ids,
                                            metric, k_eff, h["b_real"])
 
@@ -1304,47 +1341,30 @@ class Table:
         The per-shard walks take only the first b_real queries (the rest
         pad the bucket with copies of query 0). Returns (device tensors,
         context for collect's top-up)."""
-        seg = self.segment
-        sf.sync(seg.dense_host[field_name], seg.dense_norms[field_name], n)
+        self._sync_shards(sf, field_name, n)
         qp = self._pad_queries(sf.store, queries)
-        use_graph = (sf.graph is not None
-                     and n >= self.config.brute_force_threshold
-                     and not self.config.pre_filter and not pre_filter)
+        use_graph = self._graph_serves(sf.graph, n, pre_filter)
         k_cand = min(k_eff + GRAPH_SLACK, max(n_alive, 1))
-        ver = None
-        if mask_cacheable:
-            # Version first, then a fresh validity snapshot: the caller's
-            # `valid` may predate a concurrent insert that already bumped
-            # the version (see _device_mask).
-            ver = seg.mutation_version
-            valid = seg.valid_mask()
+        ver, valid = self._mask_snapshot(valid, mask_cacheable)
         if shard_filter is not None and use_graph:
             # Selectivity gate: count the matches on the devices (cached
             # per filter and version); widen the per-shard beams, or past
             # the cutover take the exact sharded flat scan.
-            n_match = shard_filter[0].match_count(
-                sf.composed_mask(valid, ver, shard_filter))
-            if n_match * self.SELECTIVE_FLAT_RATIO < n_alive:
-                use_graph = False
-            else:
-                boost = max(boost, self._sel_boost(n_alive, n_match))
-        beam = max(self._field_ef(field_name, ef) * boost,
-                   k_eff + GRAPH_SLACK)
-        term = min(max(self.config.beam_term_width,
-                       k_eff + GRAPH_SLACK) * boost, beam)
-        if boost > 1:
-            term = min(max(term, beam // 4), beam)
+            sel = self._selectivity(n_alive, shard_filter[0].match_count(
+                sf.composed_mask(valid, ver, shard_filter)))
+            use_graph = sel is not None
+            boost = max(boost, sel or 1)
+        beam, term, max_iters = self._walk_params(
+            field_name, ef, boost, k_eff + GRAPH_SLACK, k_eff + GRAPH_SLACK,
+            iters)
         fused = self._sharded_fused(sf, field_name) if use_graph else None
-        # The tuned depth applies as on one device; boosted (filtered)
-        # searches walk full depth.
-        it = 0 if boost > 1 else self._field_iters(field_name, beam, iters)
         dev = sf.launch(qp[:b_real] if use_graph else qp, valid, metric,
                         k_cand, use_graph=use_graph,
                         beam_width=beam, expand=self.config.beam_expand,
                         term_width=term, mask_version=ver,
                         compact=self._sharded_compact(sf),
                         shard_filter=shard_filter, fused=fused,
-                        iters=0 if it >= beam else it)
+                        iters=max_iters)
         ctx = {"qp": qp, "valid": valid, "ver": ver, "use_graph": use_graph,
                "k_cand": k_cand, "shard_filter": shard_filter}
         return dev, ctx
@@ -1390,17 +1410,12 @@ class Table:
         cache = getattr(self, "_mask_cache", None)
         if cache is None:
             cache = self._mask_cache = {}
-        ver = self.segment.mutation_version
         key = (size, row_start)
         if cacheable:
             hit = cache.get(key)
-            if hit is not None and hit[0] == ver:
+            if hit is not None and hit[0] == self.segment.mutation_version:
                 return hit[1]
-            # Re-snapshot AFTER reading the version: the caller's `valid`
-            # may predate a concurrent insert that already bumped the
-            # version, and caching that stale mask under the new key would
-            # hide the new rows from every later query at this version.
-            valid = self.segment.valid_mask()
+            ver, valid = self._mask_snapshot(valid, True)
         mask = np.zeros(size, dtype=bool)
         m = min(len(valid), size)
         mask[row_start:m] = valid[row_start:m]
@@ -1434,10 +1449,9 @@ class Table:
         store = self.segment.device_view(field_name)
         dm = self._composed_device_mask(store, valid, mask_cacheable,
                                         filter_ctx, row_start)
-        qp = np.zeros((queries.shape[0], store.dim_padded), dtype=np.float32)
-        qp[:, : store.dim] = queries
         return flat_ops.flat_topk(
-            torch.from_numpy(qp).to(store.buf.device), store.buf,
+            torch.from_numpy(self._pad_queries(store, queries)).to(
+                store.buf.device), store.buf,
             store.norms if metric == MetricType.EUCLIDEAN else None,
             dm, metric, min(k, store.capacity))
 
@@ -1664,6 +1678,55 @@ class Table:
     # Projection (reference TableMVP::Project, table_mvp.cpp:462-594).
     # ------------------------------------------------------------------
 
+    def _projected(self, query_fields: List[str], ids: Optional[np.ndarray]
+                   ) -> Tuple[List[str], np.ndarray]:
+        """The fields a projection returns (every non-index field when none
+        is named) and its row ids (every row when ids is None)."""
+        fields = list(query_fields) or [f.name for f in self.schema.fields
+                                        if not f.is_index_field]
+        if ids is None:
+            ids = np.arange(self.segment.record_number, dtype=np.int64)
+        return fields, np.asarray(ids, dtype=np.int64)
+
+    def _column(self, name: str, ids: np.ndarray, columnar: bool
+                ) -> Tuple[str, Any]:
+        """One projected column as (fastjson kind, values). columnar: the
+        kinds "v", "b", "f" and "i" come as contiguous numpy buffers (f32,
+        uint8, float64, int64), for fastjson.dumps_rows_bytes; else every
+        value is the Python value of a row dict (dense vectors as float64
+        lists, BOOL as bool)."""
+        seg = self.segment
+        ft = self.field_type_map[name]
+        if ft in DENSE_VECTOR_TYPES:
+            v = seg.dense_host[name][ids]
+            return "v", (np.ascontiguousarray(v, dtype=np.float32)
+                         if columnar else v.astype(np.float64).tolist())
+        if ft in SPARSE_VECTOR_TYPES:
+            col = seg.sparse_cols[name]
+            return "o", [(col[r].to_json() if col[r] is not None
+                          else {"indices": [], "values": []})
+                         for r in ids.tolist()]
+        if ft == FieldType.STRING:
+            col = seg.varlen_cols[name]
+            return "s", [col[r] for r in ids.tolist()]
+        if ft == FieldType.JSON:
+            col = seg.varlen_cols[name]
+            return "o", [(json.loads(col[r]) if col[r] else None)
+                         for r in ids.tolist()]
+        if ft == FieldType.GEO_POINT:
+            lat, lon = seg.geo_cols[name]
+            return "o", [{"latitude": la, "longitude": lo}
+                         for la, lo in zip(lat[ids].tolist(),
+                                           lon[ids].tolist())]
+        v = seg.primitive_cols[name][ids]
+        kind, dtype = (("b", np.uint8) if ft == FieldType.BOOL else
+                       ("f", np.float64) if ft in (FieldType.FLOAT,
+                                                   FieldType.DOUBLE) else
+                       ("i", np.int64))
+        if columnar:
+            return kind, np.ascontiguousarray(v, dtype=dtype)
+        return kind, (v.astype(bool) if kind == "b" else v).tolist()
+
     def project_columnar(self, query_fields: List[str],
                          ids: Optional[np.ndarray], with_distance: bool,
                          distances: Optional[np.ndarray]) -> ColumnarRows:
@@ -1671,108 +1734,30 @@ class Table:
         (numpy where the type allows, Python lists otherwise) and a kind
         string, which fastjson.dumps_rows_bytes serializes to the
         row-objects JSON in one C pass, with no per-row dicts."""
-        seg = self.segment
-        fields = list(query_fields)
-        if not fields:
-            fields = [f.name for f in self.schema.fields
-                      if not f.is_index_field]
-        if ids is None:
-            ids = np.arange(seg.record_number, dtype=np.int64)
-        ids = np.asarray(ids, dtype=np.int64)
-        names: List[str] = []
+        fields, ids = self._projected(query_fields, ids)
         kinds: List[str] = []
         cols: List[Any] = []
         for name in fields:
-            ft = self.field_type_map[name]
-            names.append(name)
-            if ft in DENSE_VECTOR_TYPES:
-                kinds.append("v")
-                cols.append(np.ascontiguousarray(seg.dense_host[name][ids],
-                                                 dtype=np.float32))
-            elif ft in SPARSE_VECTOR_TYPES:
-                col = seg.sparse_cols[name]
-                kinds.append("o")
-                cols.append([(col[r].to_json() if col[r] is not None
-                              else {"indices": [], "values": []})
-                             for r in ids.tolist()])
-            elif ft == FieldType.STRING:
-                col = seg.varlen_cols[name]
-                kinds.append("s")
-                cols.append([col[r] for r in ids.tolist()])
-            elif ft == FieldType.JSON:
-                col = seg.varlen_cols[name]
-                kinds.append("o")
-                cols.append([(json.loads(col[r]) if col[r] else None)
-                             for r in ids.tolist()])
-            elif ft == FieldType.GEO_POINT:
-                lat, lon = seg.geo_cols[name]
-                kinds.append("o")
-                cols.append([{"latitude": la, "longitude": lo}
-                             for la, lo in zip(lat[ids].tolist(),
-                                               lon[ids].tolist())])
-            elif ft == FieldType.BOOL:
-                kinds.append("b")
-                cols.append(np.ascontiguousarray(
-                    seg.primitive_cols[name][ids], dtype=np.uint8))
-            elif ft in (FieldType.FLOAT, FieldType.DOUBLE):
-                kinds.append("f")
-                cols.append(np.ascontiguousarray(
-                    seg.primitive_cols[name][ids], dtype=np.float64))
-            else:
-                kinds.append("i")
-                cols.append(np.ascontiguousarray(
-                    seg.primitive_cols[name][ids], dtype=np.int64))
+            kind, col = self._column(name, ids, True)
+            kinds.append(kind)
+            cols.append(col)
         d = None
         if with_distance and distances is not None:
             d = np.ascontiguousarray(
                 np.asarray(distances, dtype=np.float64)[:len(ids)])
         return ColumnarRows(self, query_fields, ids, with_distance,
-                            distances, names, "".join(kinds), cols, d)
+                            distances, fields, "".join(kinds), cols, d)
 
     def project(self, query_fields: List[str], ids: Optional[np.ndarray],
                 with_distance: bool,
                 distances: Optional[np.ndarray]) -> List[Dict[str, Any]]:
-        seg = self.segment
-        fields = list(query_fields)
-        if not fields:
-            fields = [f.name for f in self.schema.fields
-                      if not f.is_index_field]
-        if ids is None:
-            ids = np.arange(seg.record_number, dtype=np.int64)
-        ids = np.asarray(ids, dtype=np.int64)
+        fields, ids = self._projected(query_fields, ids)
         m = len(ids)
         # Column-at-a-time extraction (one vectorized numpy op / tolist per
         # field), then one zip to assemble row dicts.
-        cols: List[Tuple[str, List[Any]]] = []
-        for name in fields:
-            ft = self.field_type_map[name]
-            if ft in DENSE_VECTOR_TYPES:
-                vals = seg.dense_host[name][ids].astype(np.float64).tolist()
-            elif ft in SPARSE_VECTOR_TYPES:
-                col = seg.sparse_cols[name]
-                vals = [(col[r].to_json() if col[r] is not None
-                         else {"indices": [], "values": []})
-                        for r in ids.tolist()]
-            elif ft == FieldType.STRING:
-                col = seg.varlen_cols[name]
-                vals = [col[r] for r in ids.tolist()]
-            elif ft == FieldType.JSON:
-                col = seg.varlen_cols[name]
-                vals = [(json.loads(col[r]) if col[r] else None)
-                        for r in ids.tolist()]
-            elif ft == FieldType.GEO_POINT:
-                lat, lon = seg.geo_cols[name]
-                vals = [{"latitude": la, "longitude": lo}
-                        for la, lo in zip(lat[ids].tolist(),
-                                          lon[ids].tolist())]
-            elif ft == FieldType.BOOL:
-                vals = seg.primitive_cols[name][ids].astype(bool).tolist()
-            else:
-                vals = seg.primitive_cols[name][ids].tolist()
-            cols.append((name, vals))
         out: List[Dict[str, Any]] = [dict() for _ in range(m)]
-        for name, vals in cols:
-            for rec, v in zip(out, vals):
+        for name in fields:
+            for rec, v in zip(out, self._column(name, ids, False)[1]):
                 rec[name] = v
         if with_distance and distances is not None:
             dvals = np.asarray(distances, dtype=np.float64)[:m].tolist()
