@@ -1520,6 +1520,43 @@ def test_replay_after_a_delete(cuda_device, tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_replays_read_one_mask_per_version(cuda_device, tmp_path):
+    """Single queries through vdb.query at one version: every one replays,
+    reads the same device mask tensor and reuses the host mask, which is
+    never rebuilt. After a delete the chain is dropped, and the eager,
+    captured and replayed answers all leave the deleted rows out."""
+    from vectordb_tpu_torch.metrics import metrics
+    table, _, qs = _replay_table(tmp_path)
+
+    def run(i):
+        code, rows = vdb.query("t", "Emb", qs[i].tolist(), ["ID"], 10)
+        assert code == 0 and len(rows) == 10
+        return [r["ID"] for r in rows]
+
+    def mask_counts():
+        c = metrics.snapshot()["counters"]
+        return np.array([int(c.get(k, 0)) for k in (
+            "valid_mask_builds_total", "valid_mask_reuses_total")])
+
+    for _ in range(3):
+        run(0)
+    device_masks = {k: v[1] for k, v in table._mask_cache.items()}
+    before, masks = _replay_counts(), mask_counts()
+    for i in range(8):
+        run(i)
+    assert (_replay_counts() - before).tolist() == [8, 0, 0]
+    assert (mask_counts() - masks).tolist() == [0, 8]
+    assert table._mask_cache.keys() == device_masks.keys()
+    assert all(table._mask_cache[k][1] is t for k, t in device_masks.items())
+    victims = run(0)[:3]
+    assert vdb.delete_by_pk("t", victims) == 0
+    before = _replay_counts()
+    for _ in range(3):
+        assert not set(victims) & set(run(0))
+    assert (_replay_counts() - before).tolist() == [2, 1, 1]
+
+
+@pytest.mark.gpu
 def test_replay_with_rows_inserted_past_the_graph(cuda_device, tmp_path,
                                                   monkeypatch):
     """Rows inserted after the build: the replayed walk merges with the

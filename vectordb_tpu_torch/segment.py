@@ -29,6 +29,7 @@ from ._device import default_device
 from .errors import (DB_UNEXPECTED_ERROR, INVALID_RECORD, RECORD_NOT_FOUND,
                      Status, VectorDBError)
 from .logger import logger
+from .metrics import metrics
 from .index.geo import GeospatialIndex
 from .ops.sparse import SparseVector
 from .schema import (DENSE_VECTOR_TYPES, INT_TYPES, PRIMITIVE_DTYPES,
@@ -167,6 +168,9 @@ class TableSegment:
         # Bumped on every insert/delete; used to invalidate cached device
         # masks without re-uploading them per query.
         self.mutation_version = 0
+        # valid_mask's snapshots: n_padded -> (version, mask, alive count).
+        self._valid_masks: Dict[Optional[int], Tuple[int, np.ndarray, int]] = {}
+        self._valid_masks_lock = threading.Lock()
 
         for f in schema.fields:
             if f.is_primary_key:
@@ -658,13 +662,42 @@ class TableSegment:
         self._device_col_cache = {}
 
     def valid_mask(self, n_padded: Optional[int] = None) -> np.ndarray:
-        """Bool mask over [0, n_padded): alive rows below record_number."""
+        """Bool mask over [0, n_padded): alive rows below record_number.
+
+        One read-only snapshot per (mutation version, n_padded), its alive
+        count stored beside it (alive_count). The version is read before
+        the build and the snapshot stored only if it still holds after, so
+        a mask that predates a concurrent insert or delete is never served
+        at the write's version. A caller that needs another mask makes a
+        new array (`valid & other`); an in-place write raises."""
+        ver = self.mutation_version
+        hit = self._valid_masks.get(n_padded)
+        if hit is not None and hit[0] == ver:
+            metrics.inc("valid_mask_reuses_total")
+            return hit[1]
         n = self.record_number
         size = n_padded if n_padded is not None else n
         mask = np.zeros(size, dtype=bool)
         lim = min(n, size)
         mask[:lim] = ~self.deleted[:lim]
+        mask.flags.writeable = False
+        metrics.inc("valid_mask_builds_total")
+        with self._valid_masks_lock:
+            if self.mutation_version == ver:
+                # Copy on write: readers look entries up without the lock.
+                kept = {k: e for k, e in self._valid_masks.items()
+                        if e[0] == ver}
+                kept[n_padded] = (ver, mask, int(np.count_nonzero(mask)))
+                self._valid_masks = kept
         return mask
+
+    def alive_count(self, mask: np.ndarray) -> int:
+        """np.count_nonzero(mask): the stored count when `mask` is a cached
+        valid_mask snapshot, else counted."""
+        for _, snap, count in self._valid_masks.values():
+            if snap is mask:
+                return count
+        return int(np.count_nonzero(mask))
 
     def count_alive(self) -> int:
         return int(self.record_number - np.count_nonzero(
