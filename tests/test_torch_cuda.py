@@ -968,6 +968,67 @@ def test_hybrid_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                                    rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.gpu
+def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
+        cuda_device, tmp_path):
+    """A single vdb.query under a device filter that keeps 1% of a graph
+    table's rows (doc_id >= 5940 of a permutation of 0-5999) takes the
+    exact masked flat scan on the card, counted in filter_route_flat_total,
+    and answers as the CPU route does, bit for bit: integer-valued rows and
+    queries (every f32 score is exact in any order), and queries whose 11
+    nearest kept rows lie at distinct distances, so no tie can order them
+    differently."""
+    from vectordb_tpu_torch.metrics import metrics
+
+    rng = np.random.default_rng(41)
+    n, dim = 6000, 64
+    x = rng.integers(-8, 9, size=(n, dim)).astype(np.float32)
+    doc_id = rng.permutation(n)
+    keep = doc_id >= n - n // 100
+    cand = rng.integers(-8, 9, size=(64, dim)).astype(np.float32)
+    exact = ((cand[:, None, :] - x[None, keep, :]) ** 2).sum(-1)
+    first = np.sort(exact, axis=1)[:, :11]
+    queries = cand[(np.diff(first, axis=1) > 0).all(1)][:8]
+    assert len(queries) == 8
+    route = ("filter_route_flat_total", "filter_route_walk_total")
+    out = {}
+    for device in ("cuda", "cpu"):
+        vdb._reset_for_tests()
+        vdb.set_device(device)
+        assert vdb.update_config({"AutoTuneSearch": False,
+                                  "FlatServe": "off"}) == 0
+        assert vdb.load_db("f", str(tmp_path / device), vector_scale=n) == 0
+        vdb.use_db("f")
+        vdb.create_table("t", [
+            {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "doc_id", "dataType": "INT"},
+            {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+             "metricType": "EUCLIDEAN"}])
+        code, _ = vdb.insert_columns("t", {"ID": np.arange(n),
+                                           "doc_id": doc_id, "Emb": x})
+        assert code == 0 and vdb.rebuild() == 0
+        store = vdb._db.databases["f"].tables["t"].segment.device_view(
+            "Emb")
+        assert store.buf.device.type == device
+        before = [metrics.snapshot()["counters"].get(c, 0.0) for c in route]
+        res = []
+        for q in queries:
+            code, rows = vdb.query("t", "Emb", q.tolist(), ["ID"], 10,
+                                   f"doc_id >= {n - n // 100}", True)
+            assert code == 0 and len(rows) == 10
+            res.append(([r["ID"] for r in rows],
+                        np.array([r["@distance"] for r in rows])))
+        after = [metrics.snapshot()["counters"].get(c, 0.0) for c in route]
+        assert [a - b for a, b in zip(after, before)] == [len(queries), 0]
+        out[device] = res
+    for (gi, gd), (ci, cd) in zip(out["cuda"], out["cpu"]):
+        assert gi == ci and keep[gi].all()
+        assert gd.tobytes() == cd.tobytes()
+    for (_, gd), q in zip(out["cuda"], queries):
+        row = np.sort(((q[None, :] - x[keep]) ** 2).sum(-1))[:10]
+        np.testing.assert_array_equal(gd, row)
+
+
 def _sharded_run(device_list, tmp_path, x, queries, probe):
     """A ShardCount table over `device_list` (one shard each): launch counts
     of its build and of its grouped queries, flat single-query ids before

@@ -368,7 +368,9 @@ class Table:
             boost, pre_filter = 1, False
             if compiler is not None and not uses_distance:
                 if not is_sparse:
-                    filter_ctx = self._device_filter(filter_nodes, compiler)
+                    with span("vdb.table.filter"):
+                        filter_ctx = self._device_filter(filter_nodes,
+                                                         compiler)
                 if filter_ctx is None:
                     # Host fold (strings / LIKE / IN). The match count is
                     # known here for free, so the graph path's selectivity
@@ -504,6 +506,21 @@ class Table:
         if n_match * cls.SELECTIVE_FLAT_RATIO < n_alive:
             return None
         return cls._sel_boost(n_alive, n_match)
+
+    @classmethod
+    def _filter_gate(cls, device_filter, mask, n_alive: int,
+                     b: int) -> Optional[int]:
+        """_selectivity of a device filter over its composed mask (or a
+        sharded table's list of shard masks) for a batch of b queries,
+        counted: filter_route_flat_total / filter_route_walk_total (queries
+        by the route the gate chose) and filter_match_rows_total (rows the
+        filter kept, once a query)."""
+        n_match = device_filter.match_count(mask)
+        sel = cls._selectivity(n_alive, n_match)
+        metrics.inc("filter_route_walk_total" if sel is not None
+                    else "filter_route_flat_total", b)
+        metrics.inc("filter_match_rows_total", n_match * b)
+        return sel
 
     def _graph_serves(self, graph, n: int, pre_filter: bool = False) -> bool:
         """Whether a graph walk serves a table of n rows: a graph exists,
@@ -1222,11 +1239,13 @@ class Table:
                 # device filter's matches on the device (cached per filter and
                 # version) and either widen the beam (~2/s) or, past the flat
                 # cutover, pre-filter with the exact masked scan.
-                store = seg.device_view(field_name)
-                dm = self._composed_device_mask(store, valid, mask_cacheable,
-                                                filter_ctx)
-                sel = self._selectivity(n_alive,
-                                        filter_ctx.device.match_count(dm))
+                with span("vdb.table.filter"):
+                    store = seg.device_view(field_name)
+                    dm = self._composed_device_mask(store, valid,
+                                                    mask_cacheable,
+                                                    filter_ctx)
+                    sel = self._filter_gate(filter_ctx.device, dm, n_alive,
+                                            b_real)
                 use_graph = sel is not None
                 boost = max(boost, sel or 1)
             if not use_graph:
@@ -1349,8 +1368,11 @@ class Table:
             # Selectivity gate: count the matches on the devices (cached
             # per filter and version); widen the per-shard beams, or past
             # the cutover take the exact sharded flat scan.
-            sel = self._selectivity(n_alive, shard_filter[0].match_count(
-                sf.composed_mask(valid, ver, shard_filter)))
+            with span("vdb.table.filter"):
+                sel = self._filter_gate(
+                    shard_filter[0], sf.composed_mask(valid, ver,
+                                                      shard_filter),
+                    n_alive, b_real or queries.shape[0])
             use_graph = sel is not None
             boost = max(boost, sel or 1)
         beam, term, max_iters = self._walk_params(
@@ -1448,6 +1470,7 @@ class Table:
         store = self.segment.device_view(field_name)
         dm = self._composed_device_mask(store, valid, mask_cacheable,
                                         filter_ctx, row_start)
+        metrics.inc("flat_scan_rows_total", store.capacity)
         return flat_ops.flat_topk(
             torch.from_numpy(self._pad_queries(store, queries)).to(
                 store.buf.device), store.buf,
