@@ -28,7 +28,11 @@ bound (beam.walk_bytes: the bytes its data needs) in turns with the plain
 version; after the graph phase, the same at the walks that phase gave the
 kernel (its tuned beam: the grouped walk fused and split, the single
 query's; the widest walk that took the block variant) and the variant and
-mode each walk took.
+mode each walk took; and the id-scan kernel (ops/id_scan) at
+cohere1m.filter99's shape (the configuration's 1M x 768 bf16 rows, the
+10,023 ids its filter keeps, one query) against its plain version, its
+top-42 against the full masked scan, timed warm and with its rows out of
+L2 beside the full-table scan it replaced.
 Each case prints its time beside its
 bound on the H100
 (bytes moved once each at 3.35 TB/s, FLOPs at the 989 TFLOP/s bf16
@@ -121,8 +125,8 @@ import torch
 import vectordb_tpu_torch as vdb
 from vectordb_tpu_torch import _cuda_build, rest
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import (beam, gather, ivf, partial_min, qwire,
-                                    sparse)
+from vectordb_tpu_torch.ops import (beam, flat, gather, id_scan, ivf,
+                                    partial_min, qwire, sparse)
 from vectordb_tpu_torch.ops.sparse import SparseVector
 from vectordb_tpu_torch.schema import MetricType
 
@@ -176,6 +180,16 @@ GRAPH_WIRES = ("f32", "bf16", "int8")
 # about D * 2^-24 of the sum of magnitudes, which |q|^2 + |x|^2 bounds.
 # Values must agree within rtol 1e-5 + 1e-5 * max(|q|^2 + |x|^2).
 VAL_RTOL, VAL_ATOL_SCALE = 1e-5, 1e-5
+# The id-scan kernel at cohere1m.filter99's shape: the configuration's rows
+# (unit length, bf16, in a store of 2^20 rows), the rows its filter keeps
+# (doc_id >= 990000) and the candidates a query takes (k + 32).
+ID_SCAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "perfbench", "configs",
+                              "cohere-768-1m-filter99.json")
+ID_SCAN_CAPACITY, ID_SCAN_THRESHOLD, ID_SCAN_K = 1 << 20, 990_000, 42
+# A write this large between two timed calls leaves nothing of their inputs
+# in the 50 MB L2.
+SCRUB_BYTES = 256 << 20
 
 
 def log(msg: str) -> None:
@@ -236,6 +250,7 @@ def reset_counts() -> None:
     gather.reset_launches()
     sparse.reset_launches()
     beam.reset_launches()
+    id_scan.reset_launches()
 
 
 def read_counts() -> dict:
@@ -245,7 +260,8 @@ def read_counts() -> dict:
             "csr_ip": sparse.launches,
             "csr_ip_by_variant": dict(sparse.launches_by_variant),
             "beam_iter": beam.launches,
-            "beam_iter_by_plan": dict(beam.launches_by_plan)}
+            "beam_iter_by_plan": dict(beam.launches_by_plan),
+            "id_scan": id_scan.launches}
 
 
 def check_wires(dev: torch.device) -> dict:
@@ -505,6 +521,120 @@ def check_knn_kernel(dev: torch.device):
           "exclude_self": True, "mask": None}
     out = compare_scan(dev, "knn_block", kw)
     del tab, norms, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_ms(call, launches: int = 20) -> float:
+    """Device ms of one call: the median of 5 replays of a CUDA graph of
+    `launches` calls, over `launches` (no host launch cost between them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            call()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / launches)
+    del g
+    return statistics.median(times)
+
+
+def cold_ms(call, scrub: torch.Tensor, reps: int = 30) -> float:
+    """Median ms of one call with its inputs out of L2: CUDA events around
+    each call, queued behind a write of `scrub` (which also keeps the queue
+    full, so the events time the call and not its launch)."""
+    call()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for i, (e0, e1) in enumerate(pairs):
+        scrub.fill_(float(i))
+        e0.record()
+        call()
+        e1.record()
+    torch.cuda.synchronize()
+    return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
+
+
+def check_id_scan(dev: torch.device) -> dict:
+    """The id-scan kernel (ops/id_scan) at cohere1m.filter99's shape: the
+    configuration's 1M x 768 rows drawn as perfbench draws them (unit
+    length, bf16, in a 2^20-row store), the ids of the rows doc_id >=
+    990000 keeps, one COSINE query. Held to its plain version on the card
+    (max abs error), and its top-42 (flat.id_topk) to the full masked scan
+    (flat.flat_topk). Device times by CUDA-graph replay (graph_ms), in
+    turns: the kernel (its 15.4 MB of rows stay in the 50 MB L2, as between
+    two of the cell's queries), the plain version, the route (scan, top-42,
+    ids mapped back) and, as the yardstick it replaced, the full-table scan
+    of the batch padded to 16 queries; then the kernel with its rows out of
+    L2 (cold_ms). The bound: id_scan_cost's bytes at 3.35 TB/s."""
+    from perfbench.generators import latent
+
+    with open(ID_SCAN_CONFIG) as f:
+        cfg = json.load(f)
+    data = latent.make(cfg, 1, dev, 16)
+    n, d = cfg["rows"], cfg["dim"]
+    tab = torch.zeros((ID_SCAN_CAPACITY, d), dtype=torch.bfloat16,
+                      device=dev)
+    for s in range(0, n, 1 << 18):
+        x = torch.from_numpy(data["raw"]["x"][s:s + (1 << 18)]).to(dev)
+        tab[s:s + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(
+            torch.bfloat16)
+    keep = torch.zeros(ID_SCAN_CAPACITY, dtype=torch.bool, device=dev)
+    keep[:n] = torch.from_numpy(
+        data["attributes"]["doc_id"] >= ID_SCAN_THRESHOLD).to(dev)
+    ids = keep.nonzero().view(-1).to(torch.int32)
+    q = torch.from_numpy(data["queries"]).to(dev)
+    q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+    q1 = q[:1].contiguous()
+    cos = MetricType.COSINE
+    m = int(ids.numel())
+    got = id_scan.id_scan(q1, tab, None, ids, int(cos))
+    want = id_scan.id_scan_ref(q1, tab, None, ids, int(cos))
+    err = float((got - want).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"id_scan: max abs error {err} against its "
+                             "plain version")
+    d_ids, i_ids = flat.id_topk(q1, tab, None, ids, cos, ID_SCAN_K)
+    d_full, i_full = flat.flat_topk(q1, tab, None, keep, cos, ID_SCAN_K)
+    route_err = float((d_ids - d_full).abs().max())
+    if route_err > 1e-5 or not bool(keep[i_ids.long()].all()):
+        raise AssertionError(f"id_topk: {route_err} from the full masked "
+                             "scan, or a row the filter drops")
+    scrub = torch.empty(SCRUB_BYTES // 4, device=dev)
+    times = in_turns({
+        "ms": lambda: id_scan.id_scan(q1, tab, None, ids, int(cos)),
+        "plain_ms": lambda: id_scan.id_scan_ref(q1, tab, None, ids,
+                                                int(cos)),
+        "route_ms": lambda: flat.id_topk(q1, tab, None, ids, cos,
+                                         ID_SCAN_K),
+        "full_scan_ms": lambda: flat.flat_topk(q, tab, None, keep, cos,
+                                               ID_SCAN_K)},
+        graph_ms, 5)
+    times["cold_ms"] = cold_ms(
+        lambda: id_scan.id_scan(q1, tab, None, ids, int(cos)), scrub)
+    bound = id_scan.id_scan_cost(1, m, d) / partial_min.H100_HBM_BYTES_PER_S
+    out = {**times, "rows": m, "dim": d, "queries": 1,
+           "bound_ms": bound * 1e3, "bound_by": "bytes",
+           "rows_and_query_bound_ms": (2 * m * d + 4 * d)
+           / partial_min.H100_HBM_BYTES_PER_S * 1e3,
+           "pct_of_bound": 100.0 * bound * 1e3 / times["ms"],
+           "cold_pct_of_bound": 100.0 * bound * 1e3 / times["cold_ms"],
+           "max_abs_err": err, "route_max_abs_err": route_err}
+    log(f"kernel id_scan: {json.dumps(out)}")
+    del tab, keep, scrub, data
     torch.cuda.empty_cache()
     return out
 
@@ -2302,6 +2432,7 @@ def main() -> int:
     gather_cases = check_gather(dev)
     wires = check_wires(dev)
     beam_cases = check_beam(dev)
+    ids_case = check_id_scan(dev)
     sl = run_slice(dev, SLICE_N, SLICE_D, SLICE_Q, SLICE_BATCH)
     log(f"slice: {json.dumps(sl)}")
     gr = run_graph(dev, GRAPH_N, GRAPH_D, GRAPH_Q, GRAPH_BATCH)
@@ -2367,6 +2498,9 @@ def main() -> int:
         if not all(phases[phase]["gather_by_row_bytes"].get(w, 0) > 0
                    for w in widths):
             raise AssertionError(f"{phase}: no gathers of {widths}-byte rows")
+    if phases["rest_queries"]["id_scan"] <= 0:
+        raise AssertionError("rest_queries: the filtered flat scan (price < "
+                             "5.0 keeps 5%) never launched id_scan")
     for phase in ("graph_single", "graph_grouped_auto", "graph_grouped_off",
                   "sharded_single", "ivf_grouped"):
         if phases[phase]["beam_iter"] <= 0:
@@ -2461,7 +2595,16 @@ def main() -> int:
            **row, "library_ms": None, "library": "none computes it",
            **({"launches_by_plan": by_plan, "cases": beam_cases}
               if variant == "warp" else {})}
-          for variant, row in rows.items())]}), flush=True)
+          for variant, row in rows.items()),
+        {"name": "id_scan", "route": "cuda",
+         "source": "vectordb_tpu_torch/csrc/id_scan.cu",
+         "replaces": None,
+         "replaces_kind": "no TPU kernel: the JAX package scores the whole "
+                          "masked table (vectordb_tpu/ops/flat.py "
+                          "flat_topk)",
+         "launches": sum(c["id_scan"] for c in phases.values()),
+         **ids_case, "library_ms": None, "library": "none computes it"}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

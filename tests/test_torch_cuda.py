@@ -1,5 +1,5 @@
 """The port on a CUDA device: the partial-min, row-gather, CSR
-inner-product and beam-iteration kernels against their plain versions, the flat-serve and
+inner-product, beam-iteration and id-scan kernels against their plain versions, the flat-serve and
 graph slices through the kernels, a graph query's device chain replayed
 from a captured CUDA graph against its eager run, the query wires' device
 round trip against the host's and the flat-serve kernel path under the int8 wire,
@@ -15,13 +15,15 @@ in f32 in different orders — rtol 1e-5, atol 1e-5 * max(|q|^2 + |x|^2),
 and ids equal except at such near-ties. The row gather copies bytes, so it
 must equal its plain version bit for bit, and so must the beam iteration
 on integer-valued rows and queries (every f32 sum of its scores is exact
-in any order there, and its merge keeps the plain version's ties). The
+in any order there, and its merge keeps the plain version's ties), and so
+must the id scan on such rows (the same exact sums). The
 CSR inner product adds the
 same f32 products in another order than its plain version: rtol 1e-5 plus
 1e-5 x sum |q_i x_i| of the row. Device filter masks must equal
 the host evaluator's bit for bit (the adversarial table below is also used
 by tests/test_torch_device_filter.py on the CPU).
 """
+import functools
 import json
 
 import numpy as np
@@ -33,7 +35,8 @@ from vectordb_tpu_torch.config import global_config
 from vectordb_tpu_torch.db_server import DBServer
 from vectordb_tpu_torch.expr.evaluator import FilterCompiler
 from vectordb_tpu_torch.expr.parser import parse_expr
-from vectordb_tpu_torch.ops import beam, flat, gather, partial_min, qwire
+from vectordb_tpu_torch.ops import (beam, flat, gather, id_scan, partial_min,
+                                    qwire)
 from vectordb_tpu_torch.rest.server import RestServer
 from vectordb_tpu_torch.schema import MetricType
 
@@ -974,6 +977,7 @@ def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
     """A single vdb.query under a device filter that keeps 1% of a graph
     table's rows (doc_id >= 5940 of a permutation of 0-5999) takes the
     exact masked flat scan on the card, counted in filter_route_flat_total,
+    over the filter's kept rows (the id-scan kernel; flat_id_scans_total),
     and answers as the CPU route does, bit for bit: integer-valued rows and
     queries (every f32 score is exact in any order), and queries whose 11
     nearest kept rows lie at distinct distances, so no tie can order them
@@ -990,7 +994,8 @@ def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
     first = np.sort(exact, axis=1)[:, :11]
     queries = cand[(np.diff(first, axis=1) > 0).all(1)][:8]
     assert len(queries) == 8
-    route = ("filter_route_flat_total", "filter_route_walk_total")
+    route = ("filter_route_flat_total", "filter_route_walk_total",
+             "flat_id_scans_total")
     out = {}
     for device in ("cuda", "cpu"):
         vdb._reset_for_tests()
@@ -1019,7 +1024,8 @@ def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
             res.append(([r["ID"] for r in rows],
                         np.array([r["@distance"] for r in rows])))
         after = [metrics.snapshot()["counters"].get(c, 0.0) for c in route]
-        assert [a - b for a, b in zip(after, before)] == [len(queries), 0]
+        assert [a - b for a, b in zip(after, before)] == [len(queries), 0,
+                                                          len(queries)]
         out[device] = res
     for (gi, gd), (ci, cd) in zip(out["cuda"], out["cpu"]):
         assert gi == ci and keep[gi].all()
@@ -1027,6 +1033,91 @@ def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
     for (_, gd), q in zip(out["cuda"], queries):
         row = np.sort(((q[None, :] - x[keep]) ** 2).sum(-1))[:10]
         np.testing.assert_array_equal(gd, row)
+
+
+@functools.lru_cache(maxsize=None)
+def _id_scan_rows(d: int, dtype_name: str):
+    """12,000 integer-valued rows of d columns (bf16-exact) in the named
+    dtype, on the CPU, and their f32 squared norms."""
+    x = np.random.default_rng(d).integers(-8, 9, size=(12000, d))
+    tab = torch.from_numpy(x.astype(np.float32)).to(getattr(torch,
+                                                            dtype_name))
+    return tab, (tab.float() ** 2).sum(1)
+
+
+def _id_scan_case(dev, d, m, b, dtype_name="bfloat16"):
+    tab, norms = _id_scan_rows(d, dtype_name)
+    rng = np.random.default_rng(d * 7 + m + b)
+    ids = torch.from_numpy(np.sort(rng.choice(tab.shape[0], m, replace=False)
+                                   ).astype(np.int32))
+    q = torch.from_numpy(rng.integers(-8, 9, size=(b, d)).astype(np.float32))
+    return [t.to(dev) for t in (q, tab, norms, ids)], (q, tab, norms, ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d,m,b,dtype_name", [
+    *[(d, m, b, "bfloat16") for d in (64, 128, 768, 1536)
+      for m in (1, 33, 10023) for b in (1, 3)],
+    (512, 33, 3, "bfloat16"), (1024, 1000, 3, "bfloat16"),
+    (1280, 33, 1, "bfloat16"), (2048, 100, 3, "bfloat16"),
+    (768, 10023, 20, "bfloat16"),    # two query tiles along grid.y
+    (4096, 1000, 3, "bfloat16"),     # two row segments, two query tiles
+    (64, 33, 3, "float32"), (768, 10023, 1, "float32"),
+    (2048, 500, 3, "float32")])      # f32: two row segments
+def test_id_scan_kernel_matches_plain_version_bit_for_bit(
+        cuda_device, metric, d, m, b, dtype_name):
+    """The id-scan kernel against its plain version run on the CPU, on
+    integer-valued bf16-exact rows and queries: every f32 sum is exact in
+    any order, so the two agree bit for bit. One launch a call."""
+    (q, tab, norms, ids), cpu = _id_scan_case(cuda_device, d, m, b,
+                                              dtype_name)
+    before = id_scan.launches
+    got = id_scan.id_scan(q, tab, norms, ids, int(metric))
+    torch.cuda.synchronize()
+    assert id_scan.launches == before + 1
+    want = id_scan.id_scan_ref(*cpu, int(metric))
+    assert got.shape == (b, m)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.gpu
+def test_id_scan_rounds_queries_to_the_table_dtype(cuda_device):
+    """Queries that bf16 rounds (and ties to even) score as their bf16
+    values, as in flat_topk; the f32 table keeps them."""
+    (q, tab, norms, ids), cpu = _id_scan_case(cuda_device, 128, 33, 3)
+    frac = torch.tensor([1 + 2 ** -9, 1 + 3 * 2 ** -9, 1 - 2 ** -10,
+                         0.1], device=cuda_device)
+    q = q * frac.repeat(32)[None, :]
+    for table in (tab, tab.float()):
+        got = id_scan.id_scan(q, table, norms, ids, int(MetricType.COSINE))
+        want = id_scan.id_scan_ref(q.cpu(), table.cpu(), norms.cpu(),
+                                   ids.cpu(), int(MetricType.COSINE))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-3)
+        full = flat.flat_distances(q, table, None, MetricType.COSINE)
+        torch.testing.assert_close(got, full[:, ids.long()], rtol=1e-6,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_id_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    (q, tab, norms, ids), _ = _id_scan_case(cuda_device, 64, 33, 3)
+    l2 = int(MetricType.EUCLIDEAN)
+    before = id_scan.launches
+    for args, err in [
+            ((q, tab.half(), norms, ids, l2), TypeError),
+            ((q.double(), tab, norms, ids, l2), TypeError),
+            ((q, tab, norms, ids.long(), l2), TypeError),
+            ((q, tab, norms, ids.cpu(), l2), ValueError),
+            ((q.cpu(), tab, norms, ids, l2), ValueError),
+            ((q[:, :56].contiguous(), tab, norms, ids, l2), ValueError),
+            ((q, tab[:, :60], norms, ids, l2), ValueError),
+            ((q, tab, None, ids, l2), ValueError),
+            ((q, tab.view(-1)[4:4 + 11999 * 64].view(11999, 64),
+              norms[:11999], ids, l2), ValueError)]:  # 8 bytes off
+        with pytest.raises(err):
+            id_scan.id_scan(*args)
+    assert id_scan.launches == before
 
 
 def _sharded_run(device_list, tmp_path, x, queries, probe):

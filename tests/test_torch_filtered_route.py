@@ -140,8 +140,8 @@ def test_filter_span_nests_in_search_and_counters_move(table):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _query(queries[1], flt)
     moved = _counters() - before
-    capacity = t.segment.device_view("Emb").capacity
-    assert moved.tolist() == [1, 0, N // 100, capacity]
+    # The flat scan read the filter's kept rows alone.
+    assert moved.tolist() == [1, 0, N // 100, N // 100]
     ranges = sorted(
         (ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns(),
          ev.start_thread_id())

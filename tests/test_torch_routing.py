@@ -5,7 +5,8 @@ per-batch pipeline) and the integers each graph walk is launched with.
 Recording fakes stand in for the four walk launchers (ReplayCache.
 search_topk of the single-query route, beam_search_grouped of the grouped
 graph route, and the sharded field's launch / launch_grouped), for the flat
-scan (flat_topk) and for the per-batch pipeline. Each fake records its
+scan (flat_topk, and id_topk, its scan of a device filter's kept rows) and
+for the per-batch pipeline. Each fake records its
 arguments and stops the query, so no walk runs. The grid covers the beam
 width override, k, a filter keeping all, a third or a twentieth of the
 rows, and the tuned depth override. The expected values are frozen below;
@@ -100,6 +101,7 @@ def _install_fakes(monkeypatch, seen):
     launch = engine.ShardedDenseField.launch
     launch_grouped = engine.ShardedDenseField.launch_grouped
     flat_topk = flat_ops.flat_topk
+    id_topk = flat_ops.id_topk
 
     def fake_topk(*a, **kw):
         g = _bind(search_topk, *a, **kw)
@@ -134,6 +136,10 @@ def _install_fakes(monkeypatch, seen):
         seen.append(("flat", _bind(flat_topk, *a, **kw)["k"]))
         raise _Stop
 
+    def fake_id_flat(*a, **kw):
+        seen.append(("flat", _bind(id_topk, *a, **kw)["k"]))
+        raise _Stop
+
     def fake_pipelined(*a, **kw):
         seen.append(("pipelined",))
         raise _Stop
@@ -144,6 +150,7 @@ def _install_fakes(monkeypatch, seen):
     monkeypatch.setattr(engine.ShardedDenseField, "launch_grouped",
                         fake_launch_grouped)
     monkeypatch.setattr(flat_ops, "flat_topk", fake_flat)
+    monkeypatch.setattr(flat_ops, "id_topk", fake_id_flat)
     monkeypatch.setattr(Table, "_pipelined_batches", fake_pipelined)
 
 

@@ -4,8 +4,8 @@ Each library is compiled for Hopper (sm_90a) at first use and cached under
 _build/<name>-<sha12>.so, keyed on a sha256 of the sources and the command's
 flags, so an edited source never meets a stale binary. Binaries are never
 committed. Two kinds:
-- a plain-C library loaded with ctypes (partial_min): no PyTorch headers,
-  so its cold build takes seconds;
+- plain-C libraries loaded with ctypes (partial_min, id_scan): no PyTorch
+  headers, so a cold build takes seconds;
 - PyTorch operator libraries (gather_rows_op: the gather kernel and the
   `vdb::gather_rows` operator; csr_ip_op: the sparse scorer's kernel and
   the `vdb::csr_ip` operator; beam_iter_op: the traversal kernel and the
@@ -36,7 +36,8 @@ TORCH_LIBS = ["c10", "c10_cuda", "torch_cpu", "torch_cuda"]
 
 # Library name -> its sources under csrc/: plain-C libraries (ctypes) and
 # PyTorch operator libraries (torch.ops).
-KERNELS: Dict[str, List[str]] = {"partial_min": ["partial_min.cu"]}
+KERNELS: Dict[str, List[str]] = {"partial_min": ["partial_min.cu"],
+                                 "id_scan": ["id_scan.cu"]}
 OPERATORS: Dict[str, List[str]] = {
     "gather_rows_op": ["gather_rows.cu", "gather_rows_op.cpp"],
     "csr_ip_op": ["csr_ip.cu", "csr_ip_op.cpp"],

@@ -44,6 +44,7 @@ import torch
 
 from .._device import default_device
 from ..errors import INVALID_EXPR, VectorDBError
+from ..metrics import metrics
 from .evaluator import _EARTH_RADIUS_KM
 from .parser import ExprNode, NodeType, ValueType
 
@@ -250,8 +251,8 @@ class DeviceFilter:
     to each device once, the columns are cached per mutation version on
     the segment (on the sharded plane, by parallel/engine.py), and the
     evaluator per structure process-wide, so a repeated filter transfers
-    nothing to the device per query. Masks and match counts are cached per
-    (mutation version, validity mask)."""
+    nothing to the device per query. Masks, and the ids of the rows each
+    keeps, are cached per (mutation version, validity mask)."""
 
     # Composed masks kept (one per validity tensor: one a shard on the
     # sharded plane).
@@ -267,10 +268,11 @@ class DeviceFilter:
         self._consts_by_device = {self.consts.device: self.consts}
         self._fn = _compiled_for_structure(_structure_key(nodes),
                                            self.field_order)
-        # id(valid_dev) -> (mutation version, valid_dev, mask): holding the
-        # validity tensor keeps its id from being reused while cached.
-        self._masks: Dict[int, Tuple[int, torch.Tensor, torch.Tensor]] = {}
-        self._count = None  # (mutation version, masks, count)
+        # id(valid_dev) -> [mutation version, valid_dev, mask, kept ids or
+        # None]: holding the validity tensor keeps its id from being reused
+        # while cached.
+        self._masks: Dict[int, list] = {}
+        self._count = None  # sharded plane: (mutation version, masks, count)
 
     def _evaluate(self, valid_dev: torch.Tensor, cols_fn) -> torch.Tensor:
         ver = self.segment.mutation_version
@@ -284,7 +286,7 @@ class DeviceFilter:
         out = self._fn(consts, valid_dev, cols_fn())
         if len(self._masks) >= self.MASK_CACHE:
             self._masks.clear()
-        self._masks[id(valid_dev)] = (ver, valid_dev, out)
+        self._masks[id(valid_dev)] = [ver, valid_dev, out, None]
         return out
 
     def mask(self, valid_dev: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -300,15 +302,33 @@ class DeviceFilter:
         the shard's device. Returns valid & filter there."""
         return self._evaluate(valid_dev, lambda: cols)
 
+    def kept_ids(self, mask: torch.Tensor) -> torch.Tensor:
+        """[m] int32 ids, ascending, of the rows a composed mask (one that
+        mask() returned) keeps, on its device: one nonzero (a host sync) at
+        the first call for the mask, kept beside it in its (mutation
+        version, validity tensor) entry, so a write's new version or a new
+        validity tensor builds a new list (counted in
+        flat_id_lists_built_total)."""
+        entry = next((e for e in self._masks.values() if e[2] is mask), None)
+        if entry is not None and entry[3] is not None:
+            return entry[3]
+        ids = torch.nonzero(mask).view(-1).to(torch.int32)
+        metrics.inc("flat_id_lists_built_total")
+        if entry is not None:
+            entry[3] = ids
+        return ids
+
     def match_count(self, mask_dev) -> int:
-        """Rows passing (validity & filter), counted on the device from a
-        composed mask, or from the list of a sharded table's shard masks;
-        one scalar copy to the host a shard per (mutation version, masks).
-        Drives the selectivity gate of the graph path: the filtered rank-k
-        neighbour sits near global rank k/selectivity, so the beam widens
-        with it or the exact masked scan takes over."""
-        masks = (list(mask_dev) if isinstance(mask_dev, (list, tuple))
-                 else [mask_dev])
+        """Rows passing (validity & filter): the length of a composed mask's
+        kept ids (kept_ids), or counted on the devices from the list of a
+        sharded table's shard masks, one scalar copy to the host a shard per
+        (mutation version, masks). Drives the selectivity gate of the graph
+        path: the filtered rank-k neighbour sits near global rank
+        k/selectivity, so the beam widens with it or the exact masked scan
+        takes over."""
+        if not isinstance(mask_dev, (list, tuple)):
+            return int(self.kept_ids(mask_dev).numel())
+        masks = list(mask_dev)
         ver = self.segment.mutation_version
         hit = self._count
         if (hit is not None and hit[0] == ver and len(hit[1]) == len(masks)

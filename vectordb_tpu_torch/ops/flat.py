@@ -6,6 +6,8 @@ deleted/filter mask folded in, then the top-k is selected; large B x N
 products stream the table in chunks with a running top-k so the [B, N]
 distance matrix stays bounded. The flat-serve program (flat_serve_grouped)
 replaces the score matrix with the partial-min scan of ops/partial_min.
+id_topk scores only the rows of an id list (a device filter's kept rows)
+through ops/id_scan, whose CUDA kernel reads each of them once.
 
 Distance conventions match the reference dispatch (db/index/index.cpp):
   EUCLIDEAN   -> squared L2
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..schema import MetricType
-from . import partial_min, qwire
+from . import id_scan, partial_min, qwire
 
 # Rows per streamed chunk of the running-top-k scan.
 DEFAULT_CHUNK = 8192
@@ -103,6 +105,48 @@ def flat_topk(queries: torch.Tensor, table: torch.Tensor,
     if q.shape[0] * n <= SINGLE_PASS_MAX_ELEMS or n % chunk != 0:
         return _flat_topk_single(q, table, norms, mask, int(metric), k)
     return _flat_topk_scan(q, table, norms, mask, int(metric), k, chunk)
+
+
+def id_topk(queries: torch.Tensor, table: torch.Tensor,
+            norms: Optional[torch.Tensor], ids: torch.Tensor,
+            metric: MetricType, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flat_topk over the rows `ids` alone: the filtered scan by ids.
+
+    queries: [B, D] f32 (rounded to the table dtype by the scan, as
+             flat_topk rounds them)
+    table:   [N, D] device-resident; norms [N] f32 (EUCLIDEAN only)
+    ids:     [m] int32 rows to score (a device filter's kept rows)
+    The distances come from ops/id_scan (the kernel on the card), the k
+    smallest from torch.topk, mapped back through `ids`; a [B, m] block
+    past SINGLE_PASS_MAX_ELEMS goes in slices of ids with a running top-k.
+    Returns (distances [B, k] f32 ascending, ids [B, k] int32), k =
+    min(k, N) as flat_topk's; slots past the m rows are +inf with id -1.
+    """
+    b = queries.shape[0]
+    k = min(k, table.shape[0])
+    step = max(SINGLE_PASS_MAX_ELEMS // max(b, 1), 1)
+    best_d = best_i = None
+    for s in range(0, ids.shape[0], step):
+        part = ids[s:s + step]
+        d = id_scan.id_scan(queries, table, norms, part, int(metric))
+        cand = part.expand(b, -1)
+        if best_d is not None:
+            d = torch.cat([best_d, d], dim=1)
+            cand = torch.cat([best_i, cand], dim=1)
+        best_d, sel = _smallest(d, min(k, d.shape[1]))
+        best_i = torch.gather(cand, 1, sel)
+    have = 0 if best_d is None else best_d.shape[1]
+    if have < k:
+        dev = table.device
+        pad_d = torch.full((b, k - have), _INF, dtype=torch.float32,
+                           device=dev)
+        pad_i = torch.full((b, k - have), -1, dtype=torch.int32, device=dev)
+        if best_d is None:
+            return pad_d, pad_i
+        best_d = torch.cat([best_d, pad_d], dim=1)
+        best_i = torch.cat([best_i, pad_i], dim=1)
+    return best_d, best_i
 
 
 # Survivor slack for the flat-serve path: re-rank the top (k + slack)

@@ -30,7 +30,9 @@ Filter semantics follow the TPU package: filters without `@distance` fold
 into the scan mask. Numeric, bool and geo filters evaluate on the device
 (expr/device.py) over exact float64 / int64 columns; the graph path counts
 their matches there and widens the beam by the selectivity or, past
-SELECTIVE_FLAT_RATIO, takes the exact masked flat scan. Other filters
+SELECTIVE_FLAT_RATIO, takes the exact masked flat scan, which then scores
+the filter's kept rows alone (ops/flat.id_topk, whose distances come from
+a hand-written CUDA kernel on the card). Other filters
 (strings, LIKE, IN) fold into the host mask with the same routing. Filters
 referencing `@distance` are applied after candidate generation over a pool
 of master_queue_size (reference vec_search_executor.cpp:906-927).
@@ -1252,7 +1254,8 @@ class Table:
                 h["dev"] = self._flat_launch(
                     field_name, queries, valid, metric,
                     min(k_eff + RERANK_SLACK, max(n_alive, 1)),
-                    mask_cacheable=mask_cacheable, filter_ctx=filter_ctx)
+                    mask_cacheable=mask_cacheable, filter_ctx=filter_ctx,
+                    b_real=b_real)
                 return h
             # Mask-aware device search: traversal sees every row, the returned
             # top-k leaves deleted / filtered rows out on the device (reference
@@ -1464,18 +1467,36 @@ class Table:
     def _flat_launch(self, field_name: str, queries: np.ndarray,
                      valid: np.ndarray, metric: MetricType, k: int,
                      row_start: int = 0, mask_cacheable: bool = False,
-                     filter_ctx: Optional[_FilterCtx] = None):
+                     filter_ctx: Optional[_FilterCtx] = None,
+                     b_real: Optional[int] = None):
         """Launch the masked flat scan over rows [row_start, n); returns
-        device tensors (distances, ids) without waiting for them."""
+        device tensors (distances, ids) without waiting for them.
+
+        Under a device filter whose mask is cacheable the scan reads the
+        filter's kept rows alone (flat_ops.id_topk over
+        DeviceFilter.kept_ids, the list built once per filter, mutation
+        version and validity mask; counted in flat_id_scans_total), for the
+        first b_real queries (all by default: the dispatch's bucket pads
+        with copies of query 0, whose result fetch_dense_search copies to
+        them). Every other launch scans the whole store (flat_topk).
+        flat_scan_rows_total counts the rows either scan read."""
         store = self.segment.device_view(field_name)
         dm = self._composed_device_mask(store, valid, mask_cacheable,
                                         filter_ctx, row_start)
+        norms = store.norms if metric == MetricType.EUCLIDEAN else None
+        k = min(k, store.capacity)
+        if filter_ctx is not None and mask_cacheable:
+            ids = filter_ctx.device.kept_ids(dm)
+            metrics.inc("flat_id_scans_total")
+            metrics.inc("flat_scan_rows_total", ids.numel())
+            return flat_ops.id_topk(
+                torch.from_numpy(self._pad_queries(store, queries[:b_real])
+                                 ).to(store.buf.device),
+                store.buf, norms, ids, metric, k)
         metrics.inc("flat_scan_rows_total", store.capacity)
         return flat_ops.flat_topk(
             torch.from_numpy(self._pad_queries(store, queries)).to(
-                store.buf.device), store.buf,
-            store.norms if metric == MetricType.EUCLIDEAN else None,
-            dm, metric, min(k, store.capacity))
+                store.buf.device), store.buf, norms, dm, metric, k)
 
     def _flat_candidates(self, field_name: str, queries: np.ndarray,
                          valid: np.ndarray, metric: MetricType, k: int,
