@@ -1035,6 +1035,57 @@ def test_filtered_single_query_takes_the_flat_scan_as_on_the_cpu(
         np.testing.assert_array_equal(gd, row)
 
 
+@pytest.mark.gpu
+def test_labelled_single_query_walks_under_the_folded_mask_as_on_the_cpu(
+        cuda_device, tmp_path):
+    """A single vdb.query under a STRING label that half of a COSINE graph
+    table's rows carry: the filter folds on the host, the gate sends it to
+    the walk (host_fold_route_walk_total), and the card answers with the
+    CPU route's ids, each row carrying the label, distances within
+    1e-5."""
+    from vectordb_tpu_torch.metrics import metrics
+
+    n, dim = 6000, 64
+    x, queries = _clustered_rows(n, dim, seed=43)
+    queries = queries[:8]
+    labels = np.where(np.random.default_rng(43).permutation(n) < n // 2,
+                      "label_50p", "label_other").astype(object)
+    route = ("host_fold_route_walk_total", "host_fold_route_flat_total")
+    out = {}
+    for device in ("cuda", "cpu"):
+        vdb._reset_for_tests()
+        vdb.set_device(device)
+        assert vdb.update_config({"AutoTuneSearch": False,
+                                  "FlatServe": "off"}) == 0
+        assert vdb.load_db("l", str(tmp_path / device), vector_scale=n) == 0
+        vdb.use_db("l")
+        vdb.create_table("t", [
+            {"name": "ID", "dataType": "INT", "primaryKey": True},
+            {"name": "labels", "dataType": "STRING"},
+            {"name": "Emb", "dataType": "VECTOR_FLOAT", "dimensions": dim,
+             "metricType": "COSINE"}])
+        code, _ = vdb.insert_columns("t", {"ID": np.arange(n),
+                                           "labels": labels.tolist(),
+                                           "Emb": x})
+        assert code == 0 and vdb.rebuild() == 0
+        store = vdb._db.databases["l"].tables["t"].segment.device_view("Emb")
+        assert store.buf.device.type == device
+        before = [metrics.snapshot()["counters"].get(c, 0.0) for c in route]
+        res = []
+        for q in queries:
+            code, rows = vdb.query("t", "Emb", q.tolist(), ["ID"], 10,
+                                   "labels = 'label_50p'", True)
+            assert code == 0 and len(rows) == 10
+            res.append(([r["ID"] for r in rows],
+                        np.array([r["@distance"] for r in rows])))
+        after = [metrics.snapshot()["counters"].get(c, 0.0) for c in route]
+        assert [a - b for a, b in zip(after, before)] == [len(queries), 0]
+        out[device] = res
+    for (gi, gd), (ci, cd) in zip(out["cuda"], out["cpu"]):
+        assert gi == ci and (labels[gi] == "label_50p").all()
+        np.testing.assert_allclose(gd, cd, rtol=0, atol=1e-5)
+
+
 @functools.lru_cache(maxsize=None)
 def _id_scan_rows(d: int, dtype_name: str):
     """12,000 integer-valued rows of d columns (bf16-exact) in the named

@@ -377,12 +377,19 @@ class Table:
                     # Host fold (strings / LIKE / IN). The match count is
                     # known here for free, so the graph path's selectivity
                     # routing applies: beam widening up to the flat
-                    # cutover, the exact masked scan past it.
-                    n_pure = seg.alive_count(valid)
-                    valid = valid & compiler.mask(n_rows=n)
-                    sel = self._selectivity(n_pure, seg.alive_count(valid))
+                    # cutover, the exact masked scan past it. Counted:
+                    # folds, and a dense query's route.
+                    with span("vdb.table.fold"):
+                        n_pure = seg.alive_count(valid)
+                        valid = valid & compiler.mask(n_rows=n)
+                        sel = self._selectivity(n_pure,
+                                                seg.alive_count(valid))
                     pre_filter = sel is None
                     boost = sel or 1
+                    metrics.inc("host_filter_folds_total")
+                    if not is_sparse:
+                        metrics.inc("host_fold_route_flat_total" if pre_filter
+                                    else "host_fold_route_walk_total")
 
         if uses_distance:
             k_cand = min(max(limit, self.config.master_queue_size), n)
